@@ -1,0 +1,135 @@
+"""RAG orchestration: retrieve → pack context → generate (the JAX
+package's ``core/rag.py``).
+
+The deterministic HSF retriever feeds the generator's prompt window;
+generation is the port's own LM serving path (prefill through the
+flash-attention kernel on the card, then greedy decode with KV caches).
+Retrieval is batched (``answer_batch`` scores every question in one
+``QueryEngine.query_batch`` dispatch); generation runs per request,
+since prompt lengths differ.
+
+Tokenization for the LM uses the retrieval plane's stable hashing (word
+→ fnv1a64 mod vocab), as the reference does.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+from repro_torch.core import hashing
+from repro_torch.core.engine import QueryEngine, RetrievalResult
+from repro_torch.core.ingest import KnowledgeBase
+from repro_torch.core.tokenizer import tokenize
+from repro_torch.models import transformer as T
+
+
+def text_to_tokens(text: str, vocab: int) -> list[int]:
+    return [hashing.fnv1a64(w) % vocab for w in tokenize(text)]
+
+
+@dataclass
+class RAGOutput:
+    retrieved: list[RetrievalResult]
+    token_ids: list[int]
+    prompt_len: int
+    # host-clock seconds of the prefill (through the first token's read
+    # back) and of the decode steps; each ends in a device → host read
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+
+
+@dataclass
+class RAGPipeline:
+    kb: KnowledgeBase
+    model: T.LM
+    cfg: T.LMConfig
+    max_context_tokens: int = 512
+    alpha: float = 1.0
+    beta: float = 1.0
+    use_kernel: bool = False
+    # injectable: serving drivers pass the runtime's engine so the
+    # retrieval tensors exist once.  Its device is the pipeline's; the
+    # model must live there.  Retrieval entry points here
+    # (answer/answer_batch) call engine.refresh() and so count as
+    # writer-thread operations; concurrent callers retrieve via
+    # runtime.submit() and use generate() with the served results, as
+    # launch/serve.py does.
+    engine: QueryEngine | None = field(default=None, repr=False)
+
+    def __post_init__(self):
+        if self.engine is None:
+            self.engine = QueryEngine(self.kb, self.alpha, self.beta,
+                                      use_kernel=self.use_kernel,
+                                      device=self.model.device)
+        elif self.engine.kb is not self.kb:
+            raise ValueError("injected engine serves a different "
+                             "KnowledgeBase than this pipeline")
+        if self.model.device.type != self.engine.device.type:
+            raise ValueError(
+                f"the model is on {self.model.device}, the engine on "
+                f"{self.engine.device}")
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def _pack_context(self, results: list[RetrievalResult]) -> list[int]:
+        """Greedy context packing: best-scored docs first, truncated to
+        the token budget."""
+        budget = self.max_context_tokens
+        packed: list[int] = []
+        for r in results:
+            toks = text_to_tokens(self.kb.texts[r.doc_id], self.cfg.vocab)
+            take = min(len(toks), budget - len(packed))
+            packed.extend(toks[:take])
+            if len(packed) >= budget:
+                break
+        return packed
+
+    def answer(self, question: str, max_new_tokens: int = 16,
+               top_k_docs: int = 3) -> RAGOutput:
+        return self.answer_batch([question], max_new_tokens=max_new_tokens,
+                                 top_k_docs=top_k_docs)[0]
+
+    def answer_batch(self, questions: list[str], max_new_tokens: int = 16,
+                     top_k_docs: int = 3) -> list[RAGOutput]:
+        """One retrieval dispatch, then generation per question."""
+        retrieved = self.engine.query_batch(questions, k=top_k_docs)
+        return [
+            self.generate(question, results, max_new_tokens)
+            for question, results in zip(questions, retrieved)
+        ]
+
+    def generate(self, question: str, results: list[RetrievalResult],
+                 max_new_tokens: int) -> RAGOutput:
+        """Generation stage alone: pack pre-retrieved context, prefill
+        (attention backend ``"auto"``: the kernel on the card), then
+        greedy decode (first index of the largest logit)."""
+        prompt = self._pack_context(results) + text_to_tokens(
+            question, self.cfg.vocab
+        )
+        prompt = prompt[-self.max_context_tokens:] or [0]
+        max_len = len(prompt) + max_new_tokens
+        dev = self.device
+
+        t0 = time.perf_counter()
+        tokens = torch.tensor([prompt], dtype=torch.int64, device=dev)
+        logits, caches, lengths = T.prefill(self.model, tokens, self.cfg,
+                                            max_len, backend="auto")
+        next_tok = int(torch.argmax(logits[0, -1]))
+        t1 = time.perf_counter()
+        out: list[int] = []
+        for _ in range(max_new_tokens):
+            out.append(next_tok)
+            lengths = lengths + 1
+            logits, caches = T.decode_step(
+                self.model, caches,
+                torch.tensor([[next_tok]], dtype=torch.int64, device=dev),
+                lengths, self.cfg,
+            )
+            next_tok = int(torch.argmax(logits[0, 0]))
+        return RAGOutput(retrieved=results, token_ids=out,
+                         prompt_len=len(prompt), prefill_s=t1 - t0,
+                         decode_s=time.perf_counter() - t1)

@@ -1,30 +1,40 @@
-"""Retrieval serving driver: knowledge container fronted by the
-concurrent serving runtime, on the card.
+"""RAG serving driver: knowledge container + generation plane, fronted
+by the concurrent serving runtime, on the card.
 
 Loads (or builds) a knowledge container, instantiates the serving
 runtime (micro-batching scheduler → generation-pinned snapshot →
-QueryEngine — docs/ARCHITECTURE.md §7) and serves requests: every query
-is ``submit()``-ed individually and the scheduler coalesces them into
-batched scoring dispatches.  Prints each query's ranked documents and
-the serving metrics snapshot (p50/p99, QPS, batch occupancy, cache hit
-rate) at the end.
+QueryEngine — docs/ARCHITECTURE.md §7) and an LM, then serves requests:
+every query is ``submit()``-ed individually and the scheduler coalesces
+them into batched scoring dispatches; generation (pack → prefill →
+decode) runs per request on the resolved retrievals.  Prints each
+query's ranked documents and generated token ids, the generation times,
+and the serving metrics snapshot (p50/p99, QPS, batch occupancy, cache
+hit rate) at the end.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --corpus /path/to/docs --max-batch 8 \\
         --queries "what is INV-2024?" ...
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  The JAX driver's
-generation leg (``--arch``, ``--max-new-tokens``), multi-tenant mode
-(``--tenant-root``) and the IVF index (``--index``) come with later
-slices of the port.
+Runs on ``cuda`` unless ``--device cpu`` is given.  On ``cuda`` the LM
+is ``--arch``'s full configuration (llama3.2-3b: 28 layers, d_model
+3072, bf16) with random weights from ``torch.Generator`` seed 0; on the
+CPU it is the arch's SMOKE configuration, as the JAX driver serves on
+its CPU host.  Multi-tenant mode (``--tenant-root``) and the IVF index
+(``--index``) come with later slices of the port.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import time
 
+import torch
+
+from repro_torch.configs import get as get_arch
 from repro_torch.core.ingest import KnowledgeBase
+from repro_torch.core.rag import RAGPipeline
+from repro_torch.models import transformer as T
 from repro_torch.obs import (
     SLOTargets,
     format_breakdown,
@@ -48,13 +58,29 @@ def _print_health(runtime) -> None:
     print(json.dumps(h, indent=2, sort_keys=True, default=str))
 
 
+def _generation_summary(gens, max_new_tokens: int) -> str:
+    """Medians over the served requests; each time ends in a device →
+    host read of a token, so it includes the device work."""
+    prefill_ms = statistics.median(g.prefill_s for g in gens) * 1e3
+    line = (f"generation: {len(gens)} requests, prompt tokens p50 "
+            f"{statistics.median(g.prompt_len for g in gens):.0f}, "
+            f"prefill p50 {prefill_ms:.2f} ms")
+    if max_new_tokens:
+        per_tok = statistics.median(g.decode_s for g in gens) \
+            / max_new_tokens * 1e3
+        line += f", decode p50 {per_tok:.2f} ms/token"
+    return line
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-3b")
     ap.add_argument("--container", default=None, help=".ragdb to load")
     ap.add_argument("--corpus", default=None, help="directory to ingest")
     ap.add_argument("--save", default=None, help="save container here")
     ap.add_argument("--queries", nargs="+", required=True)
     ap.add_argument("--top-k", type=int, default=3)
+    ap.add_argument("--max-new-tokens", type=int, default=8)
     ap.add_argument("--dim", type=int, default=4096)
     ap.add_argument("--max-batch", "--batch-size", dest="max_batch",
                     type=int, default=8,
@@ -114,6 +140,16 @@ def main(argv=None):
         slo=_slo_from_args(args),
         device=args.device,
     )
+    arch = get_arch(args.arch)
+    device = runtime.engine.device
+    # the card serves the full configuration; a CPU host the reduced one
+    cfg = arch.config if device.type == "cuda" else arch.smoke_config
+    t0 = time.perf_counter()
+    model = T.init(cfg, torch.Generator(device).manual_seed(0), device)
+    print(f"generator: {cfg.name}, {cfg.param_count():,} params "
+          f"in {cfg.dtype} on {device} (random weights, seed 0; init "
+          f"{time.perf_counter() - t0:.1f} s)")
+    rag = RAGPipeline(kb, model, cfg, engine=runtime.engine)
 
     with runtime:
         runtime.metrics.reset()
@@ -123,7 +159,7 @@ def main(argv=None):
               f"flush ≤ {args.flush_deadline_ms:.1f} ms, "
               f"batch ≤ {args.max_batch})")
         t0 = time.perf_counter()
-        futures = []
+        futures, gens = [], []
         for q in args.queries:
             try:
                 futures.append((q, runtime.submit(
@@ -132,17 +168,22 @@ def main(argv=None):
                 print(f"REJECTED {q!r}: {exc}")
         for q, fut in futures:
             served = fut.result()
+            out = rag.generate(q, served.results, args.max_new_tokens)
+            gens.append(out)
             print(f"\nQ: {q}  [generation {served.generation}"
                   f"{', cached' if served.cached else ''}]")
-            for r in served.results:
+            for r in out.retrieved:
                 mark = "*" if r.boosted else " "
                 print(f"  {mark} {r.doc_id:30s} score={r.score:.4f}")
+            print(f"  generated token ids: {out.token_ids}")
             if args.explain and served.plan is not None:
                 print(served.plan.render())
         dt = time.perf_counter() - t0
         if args.health:
             _print_health(runtime)
     print(f"\n{len(futures)} requests in {dt * 1e3:.1f} ms")
+    if gens:
+        print(_generation_summary(gens, args.max_new_tokens))
     print(f"serving metrics: {runtime.metrics.format()}")
     if args.metrics:
         stats = runtime.index_stats()

@@ -2,9 +2,9 @@
 
 Scheduled results equal a direct ``query_batch`` at the generation the
 flush pinned, under live ingest; the driver prints the JAX engine's ids
-and scores for the same corpus; the package imports neither jax nor
-anything of the JAX package; entry points with no device given raise
-on a host without a card."""
+and scores for the same corpus and generates for every request; the
+package imports neither jax nor anything of the JAX package; entry
+points with no device given raise on a host without a card."""
 import contextlib
 import io
 import os
@@ -145,7 +145,12 @@ def test_serve_prints_the_jax_engines_ids_and_scores(tmp_path):
     assert got == want
     for code, doc in entities.items():
         assert got[code][0][:2] == (f"doc_{doc:05d}.txt", True)
-    assert "serving metrics: served 5/5 requests" in buf.getvalue()
+    # every request generated 8 tokens with the SMOKE LM
+    out = buf.getvalue()
+    assert out.count("  generated token ids: [") == len(queries)
+    assert "generator: llama3.2-smoke" in out
+    assert "generation: 5 requests" in out
+    assert "serving metrics: served 5/5 requests" in out
 
 
 def test_serve_without_a_card_and_without_device_raises(tmp_path,
@@ -161,6 +166,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch, repro_torch.launch.serve, repro_torch.serving\n"
         "import repro_torch.core.engine, repro_torch.kernels.hsf_score.ops\n"
         "import repro_torch.kernels.build, repro_torch.obs\n"
+        "import repro_torch.models.transformer, repro_torch.models.attention\n"
+        "import repro_torch.core.rag, repro_torch.configs.llama3_2_3b\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
