@@ -16,7 +16,12 @@ Phases (any failure raises and the script exits non-zero):
    strided operands as the projections give them) and at its edges
    (ragged L, GQA 8:1 at Dh=32 in f32, window + softcap at Dh=256,
    non-causal, q_offset with Lq < Lk, kv_len < Lk, fully masked rows,
-   the SMOKE heads of 16 in bf16 and f32, Dh=256 in f32).
+   the SMOKE heads of 16 in bf16 and f32, Dh=256 in f32); then the
+   single-query HSF score at the serving shape in f32 and bf16 and at
+   its edges (ragged N, D without 16-byte rows, W=3, n = 0, the boost
+   exactly β); then the streaming top-k at N=65,536 and 16,777,216 with
+   k = 1, 16, 128, small N with k = N, duplicate-heavy and -inf-laden
+   scores (ids and values exactly equal).
 3. Main path: a 65,536-doc synthetic corpus with 64 entity codes,
    served through ``repro_torch.launch.serve.main`` (ingest → container
    save → micro-batched serving → generation with llama3.2-3b at full
@@ -28,8 +33,9 @@ Phases (any failure raises and the script exits non-zero):
    dispatches, flash launches must be 28 per prefill with no plain
    call, and the map path must give the same bits on the card and on
    the CPU.
-4. Timings of the HSF kernel at its serving shape: kernel, plain
-   version, the library yardstick, and the bound.
+4. Timings of the HSF kernels and the top-k at their serving shapes
+   (top-k also at 16,777,216 scores): kernel, plain version, the
+   library yardstick, and the bound.
 5. Full-width cross-check: last-position prefill logits of llama3.2-3b
    (the served weights) for four prompts through the flash kernel and
    through the plain blockwise path.
@@ -38,6 +44,16 @@ Phases (any failure raises and the script exits non-zero):
    (``scaled_dot_product_attention``), each as device time of calls
    queued back to back, and the bound; then prefill and decode at full
    width, with a profiler breakdown of one prefill and one decode step.
+7. The IVF index plane on phase 3's container: ``serve.main --index ivf
+   --guarantee exact`` must give phase 3's ids, scores and token ids,
+   with HSF launches = scoring dispatches; exact mode one query per
+   dispatch must equal the flat kernel path bit for bit (some widen
+   round reranking a proper subset), with k-means timed on the card;
+   probe mode at nprobe 1 and 8 (entity Recall@1 ≥ 0.9, Recall@16 vs
+   flat, probed fraction, span medians, time per query); the trained
+   state saved, reloaded and adopted with no retrain; the postings
+   prefilter; and the single-query path — ``hsf_scores_kernel`` then
+   ``top_k`` per query — whose launches the ``kernels`` line reports.
 
 The second line from the end is a JSON ``kernels`` record; the last is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -65,6 +81,7 @@ SRC = ROOT / "src"
 N_DOCS, DIM, SIG_WORDS, BATCH, TOP_K = 65_536, 4_096, 128, 64, 16
 N_ENTITIES = 64
 ALPHA, BETA = 1.0, 1.0
+TOPK_LONG_N = 16_777_216  # a score stream larger than the 50 MB L2
 SCORE_ATOL = 1e-5
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -186,6 +203,106 @@ def phase_kernel(torch, np, ops, ref):
     return worst
 
 
+def phase_hsf_score_kernel(torch, np, ops, ref):
+    """Single-query HSF kernel against its plain version: the serving
+    shape in f32 and bf16, ragged N, D without 16-byte rows (scalar
+    loads), a short signature, n = 0 and the boost exactly β.  Returns
+    the largest |Δ| over the cases."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    alpha, beta = 0.9, 1.3  # the JAX sweep's weights
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        # name, n, d, w, dtype
+        ("serving shape", N_DOCS, DIM, SIG_WORDS, f32),
+        ("serving shape bf16", N_DOCS, DIM, SIG_WORDS, bf16),
+        ("ragged N=1", 1, DIM, SIG_WORDS, f32),
+        ("ragged N=7", 7, DIM, SIG_WORDS, f32),
+        ("ragged N=9", 9, DIM, SIG_WORDS, bf16),
+        ("ragged N=100", 100, DIM, SIG_WORDS, f32),
+        ("D=1001 (scalar loads)", 3_001, 1_001, SIG_WORDS, f32),
+        ("D=1001 bf16 (scalar loads)", 3_001, 1_001, SIG_WORDS, bf16),
+        ("W=3", 5_000, 256, 3, f32),
+    ]
+    worst = 0.0
+    for name, n, d, w, dtype in cases:
+        dv, ds, qv, qs = _make_operands(torch, gen, n, d, w, 1)
+        dv, qv, qs = dv.to(dtype), qv[0].to(dtype), qs[0].contiguous()
+        got = ops.hsf_score(dv, ds, qv, qs, alpha=alpha, beta=beta)
+        torch.cuda.synchronize()
+        want = ref.hsf_score_ref(dv, ds, qv, qs, alpha, beta)
+        tol = 1e-5 if dtype == f32 else 3e-2
+        assert got.shape == (n,) and got.dtype == f32, name
+        # within tol, and β = 1.3 apart, so the boost decisions agree too
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol, msg=name)
+        boosted = ref.containment_matrix(ds, qs[None, :])[0] > 0
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        _log(f"  hsf_score == plain: {name:28s} N={n} D={d} W={w} "
+             f"{str(dtype)[6:]:8s} max |Δ| {err:.3e} (tol {tol:g}); "
+             f"{int(boosted.sum())} boosted")
+        del dv, ds, qv, qs, got, want
+    # boost exactness: zero vectors, the query signature of doc 7
+    n, d, w = 32, 128, 128
+    ds = torch.randint(-2**31, 2**31, (n, w), device="cuda", generator=gen,
+                       dtype=torch.int64).to(torch.int32)
+    out = ops.hsf_score(torch.zeros((n, d), device="cuda"), ds,
+                        torch.zeros((d,), device="cuda"), ds[7].contiguous(),
+                        alpha=1.0, beta=1.0)
+    assert out[7].item() == 1.0, out[7].item()
+    before = ops.single_counts["launches"]
+    empty = ops.hsf_score(torch.zeros((0, d), device="cuda"),
+                          torch.zeros((0, w), dtype=torch.int32, device="cuda"),
+                          torch.zeros((d,), device="cuda"),
+                          torch.zeros((w,), dtype=torch.int32, device="cuda"))
+    assert empty.shape == (0,) and empty.dtype == f32
+    assert ops.single_counts["launches"] == before, "n = 0 launched"
+    _log("  hsf_score: the boost is exactly β; n = 0 gives an empty vector "
+         "with no launch")
+    return worst
+
+
+def phase_topk_kernel(torch, np, tk_ops, tk_ref):
+    """Streaming top-k kernel against its plain version: ids and values
+    exactly equal, over random, duplicate-heavy and -inf-laden vectors at
+    N = 65,536 and 16,777,216 and small N with k = N."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ninf = float("-inf")
+
+    def normal(n):
+        return torch.randn(n, device="cuda", generator=gen)
+
+    def dups(n):  # five distinct values: ties everywhere
+        return torch.randint(0, 5, (n,), device="cuda",
+                             generator=gen).to(torch.float32)
+
+    def sparse(n, finite):  # mostly -inf, fewer finite entries than k
+        s = torch.full((n,), ninf, device="cuda")
+        at = torch.randperm(n, device="cuda", generator=gen)[:finite]
+        s[at] = dups(finite)
+        return s
+
+    cases = []
+    for n in (N_DOCS, TOPK_LONG_N):
+        for k in (1, 16, 128):
+            cases.append((f"normal N={n}", normal(n), k))
+        cases.append((f"duplicates N={n}", dups(n), 128))
+        cases.append((f"40 finite, rest -inf N={n}", sparse(n, 40), 128))
+    for n in (1, 5, 100, 128):
+        cases.append((f"k = N = {n}", normal(n), n))
+    cases.append(("[1, -inf, 2, -inf, 1]", torch.tensor(
+        [1.0, ninf, 2.0, ninf, 1.0], device="cuda"), 5))
+    cases.append(("all -inf", torch.full((3000,), ninf, device="cuda"), 7))
+    for name, scores, k in cases:
+        kv, ki = tk_ops.top_k(scores, k)
+        torch.cuda.synchronize()
+        pv, pi = tk_ref.top_k_ref(scores, k)
+        assert kv.shape == (k,) and ki.dtype == torch.int32, name
+        assert torch.equal(ki, pi), (name, ki[:8].tolist(), pi[:8].tolist())
+        assert torch.equal(kv, pv), (name, kv[:8].tolist(), pv[:8].tolist())
+        _log(f"  top_k == plain: {name:32s} k={k:3d} ids and values equal")
+    return 0.0
+
+
 def _attn_operands(torch, gen, b, hq, hkv, lq, lk, dh, dtype,
                    strided=False):
     """q, k, v from the standard normal; ``strided`` makes them the
@@ -295,9 +412,10 @@ def _serve(serve, argv):
     # the head (ingest, generator, path), the generation and metrics
     # lines, and the span breakdown table when the run was traced
     gen_line = next(line for line in lines if line.startswith("generation:"))
+    extra = [line for line in lines if line.startswith("index stats:")]
     trace_at = next((i for i, line in enumerate(lines)
                      if line.startswith("trace: ")), len(lines))
-    for line in lines[:5] + [gen_line, metrics] + lines[trace_at:]:
+    for line in lines[:5] + [gen_line, metrics] + extra + lines[trace_at:]:
         _log(f"    | {line}")
     _log(f"    ({time.perf_counter() - t0:.1f} s)")
     return results, tokens, flushes
@@ -391,7 +509,9 @@ def phase_main_path(torch, ops, fa_ops, tmp):
     _log(f"  map path: {len(probe)} queries bit-identical on "
          f"{on_card.device} and {on_host.device} (ids, scores, cosines, "
          "boost flags)")
-    return launches, fa_launches
+    ctx = {"container": container, "queries": queries, "entities": entities,
+           "flat": first, "tokens": tokens_1, "common": common}
+    return launches, fa_launches, ctx
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +564,67 @@ def phase_timings(torch, ops, ref):
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_new_kernel_timings(torch, ops, ref, tk_ops, tk_ref):
+    """Single-query HSF at the serving shape (f32) and top-k of a
+    65,536-score vector at k = 16 (the single-query path's shapes), and
+    top-k of a 16,777,216-score vector: kernel, plain version, library
+    yardstick and bound, as device time of calls queued behind a spin
+    kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dv, ds, qv, qs = _make_operands(torch, gen, N_DOCS, DIM, SIG_WORDS, 1)
+    qv, qs = qv[0].contiguous(), qs[0].contiguous()
+    kernel = lambda: ops.hsf_score(dv, ds, qv, qs, alpha=ALPHA, beta=BETA)  # noqa: E731
+    plain = lambda: ref.hsf_score_ref(dv, ds, qv, qs, ALPHA, BETA)  # noqa: E731
+    library = lambda: ALPHA * torch.mv(dv, qv) + BETA * (  # noqa: E731
+        (ds & qs) == qs).all(dim=1)
+    for fn in (kernel, plain, library):  # warm up
+        fn()
+    torch.cuda.synchronize()
+    score = {"ms": _queued_ms(torch, kernel, 20, 10),
+             "plain_ms": _queued_ms(torch, plain, 5, 5),
+             "library_ms": _queued_ms(torch, library, 20, 10)}
+    again = _queued_ms(torch, kernel, 20, 10)
+    n, d, w = N_DOCS, DIM, SIG_WORDS
+    nbytes = 4 * (n * d + n * w + d + w + n)
+    flops = 2 * n * d
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    score.update(bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    _log(f"  hsf_score N={n} D={d} W={w} f32: kernel {score['ms']:.4f} ms "
+         f"(again {again:.4f} ms), plain {score['plain_ms']:.4f} ms, library "
+         f"α·torch.mv + β·all((sig & q) == q) {score['library_ms']:.4f} ms; "
+         f"bound {score['bound_ms']:.4f} ms = max({nbytes / 1e6:.1f} MB / "
+         f"3.35 TB/s, {flops / 1e9:.2f} GFLOP / 67 TFLOP/s) by "
+         f"{score['bound_by']}; kernel at {score['bound_ms'] / score['ms']:.1%}"
+         f" of it, {nbytes / score['ms'] / 1e9:.2f} TB/s")
+    del dv, ds
+    out = {"score": score}
+    for n, k, reps in ((N_DOCS, TOP_K, 50), (TOPK_LONG_N, TOP_K, 10),
+                       (TOPK_LONG_N, 128, 5)):
+        scores = torch.randn(n, device="cuda", generator=gen)
+        kernel = lambda: tk_ops.top_k(scores, k)  # noqa: E731
+        plain = lambda: tk_ref.top_k_ref(scores, k)  # noqa: E731
+        library = lambda: torch.topk(scores, k)  # noqa: E731
+        for fn in (kernel, plain, library):
+            fn()
+        torch.cuda.synchronize()
+        t = {"ms": _queued_ms(torch, kernel, reps, 10),
+             "plain_ms": _queued_ms(torch, plain, 2, 5),
+             "library_ms": _queued_ms(torch, library, reps, 10)}
+        again = _queued_ms(torch, kernel, reps, 10)
+        nbytes = 4 * n + 8 * k
+        t.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        _log(f"  top_k N={n} k={k}: kernel {t['ms']:.4f} ms (again "
+             f"{again:.4f} ms), plain (stable sort) {t['plain_ms']:.4f} ms, "
+             f"library torch.topk {t['library_ms']:.4f} ms; bound "
+             f"{t['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB / 3.35 TB/s); "
+             f"kernel at {t['bound_ms'] / t['ms']:.1%} of it")
+        out[(n, k)] = t
+        del scores
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -615,6 +796,233 @@ def phase_generation_timings(torch, T, model, cfg, fa_ops, fa_ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the IVF index plane at the serving shape
+# ---------------------------------------------------------------------------
+
+def _same_results(a, b, label, cos_tol=None):
+    """Ids, scores and boost flags equal bit for bit; cosines equal too,
+    or within ``cos_tol`` where the cosine is recomputed by a product
+    whose batch shape differs (the kernel path's per-result cosine).
+    Returns the largest cosine difference."""
+    assert len(a) == len(b), (label, len(a), len(b))
+    worst = 0.0
+    for rank, (x, y) in enumerate(zip(a, b)):
+        where = (label, rank, x, y)
+        assert (x.doc_id, x.score, x.boosted) == (y.doc_id, y.score,
+                                                  y.boosted), where
+        diff = abs(x.cosine - y.cosine)
+        assert diff == 0.0 or (cos_tol is not None and diff <= cos_tol), where
+        worst = max(worst, diff)
+    return worst
+
+
+def _span_ms(spans, name):
+    durs = [sp.dur_s * 1e3 for sp in spans if sp.name == name]
+    return (statistics.median(durs) if durs else float("nan")), len(durs)
+
+
+def phase_ivf(torch, np, ops, tk_ops, ctx, tmp):
+    """The IVF plane at 65,536 docs: (a) serve.py --index ivf --guarantee
+    exact against phase 3's flat run; (b) exact mode one query per
+    dispatch against the flat kernel path; (c) probe mode at nprobe 1
+    and 8; (d) the trained state saved, reloaded and adopted with no
+    retrain; (e) the postings prefilter; (f) the single-query path,
+    hsf_score then top_k, whose kernel launches are counted here.
+    Returns the launches of hsf_score and of top_k on that path."""
+    from repro_torch.core import hsf
+    from repro_torch.core.engine import QueryEngine
+    from repro_torch.core.ingest import KnowledgeBase
+    from repro_torch.core.retrieval import Retriever
+    from repro_torch.index import IVFIndex, spherical_kmeans
+    from repro_torch.kernels.hsf_score import ref
+    from repro_torch.launch import serve
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.export import load_chrome_trace
+
+    queries, entities = ctx["queries"], ctx["entities"]
+
+    # (a) serve.py in exact mode, against phase 3's flat run
+    _log("  (a) serve --index ivf --guarantee exact (reloaded container, "
+         "traced)")
+    trace_path = str(Path(tmp) / "ivf_trace.json")
+    ops.reset_counts()
+    got, tokens, flushes = _serve(serve, [
+        "--container", ctx["container"], "--index", "ivf", "--guarantee",
+        "exact", "--metrics", "--trace", trace_path, *ctx["common"]])
+    obs_trace.disable()
+    launches = ops.counts["launches"]
+    dispatches = sum(sp.name == "device_dispatch"
+                     for sp in load_chrome_trace(trace_path))
+    assert ops.counts["unfused"] == 0, ops.counts
+    assert launches == dispatches > 0, (launches, dispatches)
+    assert got == ctx["flat"], "ivf exact served other ids or scores"
+    assert tokens == ctx["tokens"], "ivf exact generated other tokens"
+    _log(f"  (a) ids, scores and token ids equal the flat run for all "
+         f"{len(queries)} requests; hsf_topk launches {launches} = scoring "
+         f"dispatches {dispatches} over {flushes} flushes")
+
+    # (b) exact mode, one query per dispatch; k-means timed on the card
+    kb = KnowledgeBase.load(ctx["container"])
+    flat = QueryEngine(kb, device="cuda")
+    assert flat.scoring_path == "kernel"
+    want = flat.query_batch(queries, k=TOP_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spherical_kmeans(flat.doc_vecs, seed=0)
+    torch.cuda.synchronize()
+    kmeans_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trained = IVFIndex.train(flat.doc_vecs, flat.doc_sigs, seed=0)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    IVFIndex.from_assignments(trained.centroids, trained.assign,
+                              flat.doc_vecs, flat.doc_sigs, drift=0,
+                              trained_n=N_DOCS, seed=0)
+    bounds_s = time.perf_counter() - t0
+    sizes = [m.size for m in trained.members]
+    _log(f"  (b) k-means (k={trained.n_clusters}, 8 Lloyd steps) "
+         f"{kmeans_s:.3f} s; train incl. bounds {train_s:.3f} s; "
+         f"from_assignments alone {bounds_s:.3f} s (radius dots on the "
+         f"card, 33.5 MB of signatures to the host); cluster sizes "
+         f"{min(sizes)}..{max(sizes)}")
+    t0 = time.perf_counter()
+    exact = QueryEngine(kb, device="cuda", index="ivf", guarantee="exact")
+    assert exact.retrains == 1
+    _log(f"  (b) QueryEngine(index='ivf') built and trained in "
+         f"{time.perf_counter() - t0:.2f} s")
+    obs_trace.enable()
+    obs_trace.get().drain()
+    final_rows, rounds, cos_worst, hits = [], [], 0.0, 0
+    for q, w in zip(queries, want):
+        with obs_trace.span("query"):  # the index plane's spans attach here
+            res = exact.query_batch([q], k=TOP_K)[0]
+        cos_worst = max(cos_worst, _same_results(res, w, q, cos_tol=1e-6))
+        if q in entities:
+            hits += res[0].doc_id == f"doc_{entities[q]:05d}.txt"
+        st = exact.index_stats()
+        final_rows.append(st["candidate_rows"])
+        rounds.append(st["rounds"])
+    spans = obs_trace.get().drain()
+    obs_trace.disable()
+    widen = [sp.args["rows"] for sp in spans if sp.name == "ivf_widen_round"]
+    subset = [r for r in widen if r < N_DOCS]
+    assert len(widen) == sum(rounds) and subset, (len(widen), sum(rounds))
+    assert hits == len(entities), hits
+    _log(f"  (b) exact, 1 query per dispatch: entity Recall@1 "
+         f"{hits / len(entities):.3f}; {len(queries)} queries equal "
+         f"the flat kernel path (ids, scores, boost flags; cosines within "
+         f"{cos_worst:.1e}); widen rounds mean {statistics.mean(rounds):.2f}"
+         f" max {max(rounds)}; {len(subset)} of {len(widen)} scoring "
+         f"dispatches reranked a proper subset (mean "
+         f"{statistics.mean(subset) / N_DOCS:.1%} of the rows); final "
+         f"probed fraction mean {statistics.mean(final_rows) / N_DOCS:.1%}, "
+         f"{sum(r < N_DOCS for r in final_rows)} queries stopped short of "
+         f"the full scan")
+
+    # (c) probe mode; the flat kernel scores of the same docs, bit for bit
+    ent_queries = list(entities)
+    for nprobe in (1, 8):
+        eng = QueryEngine(kb, device="cuda", index="ivf", nprobe=nprobe)
+        assert eng.retrains == 0, "probe engine retrained"
+        obs_trace.enable()
+        obs_trace.get().drain()
+        with obs_trace.span("flush"):
+            res = eng.query_batch(queries, k=TOP_K)
+        spans = obs_trace.get().drain()
+        obs_trace.disable()
+        fraction = eng.index_stats()["probed_fraction"]
+        probe_ms, _ = _span_ms(spans, "ivf_probe")
+        rerank_ms, _ = _span_ms(spans, "ivf_rerank")
+        per_query = []
+        for q in queries:
+            t0 = time.perf_counter()
+            eng.query_batch([q], k=TOP_K)
+            per_query.append((time.perf_counter() - t0) * 1e3)
+        hits = sum(res[i][0].doc_id == f"doc_{entities[c]:05d}.txt"
+                   for i, c in enumerate(ent_queries))
+        recall16 = statistics.mean(
+            len({r.doc_id for r in a} & {r.doc_id for r in b}) / TOP_K
+            for a, b in zip(res[len(ent_queries):], want[len(ent_queries):]))
+        both = 0
+        for a, b in zip(res, want):
+            fs = {r.doc_id: r.score for r in b}
+            for r in a:
+                if r.doc_id in fs:
+                    assert r.score == fs[r.doc_id], (r, fs[r.doc_id])
+                    both += 1
+        recall1 = hits / len(ent_queries)
+        if nprobe == 1:
+            assert recall1 >= 0.9, recall1
+        _log(f"  (c) probe nprobe={nprobe}: entity Recall@1 {recall1:.3f}, "
+             f"Recall@16 vs flat (plain queries) {recall16:.3f}, probed "
+             f"fraction {fraction:.3%} (mean over the flush), span medians "
+             f"ivf_probe {probe_ms:.3f} ms and ivf_rerank {rerank_ms:.3f} ms "
+             f"per {len(queries)}-query flush; one query per call "
+             f"{statistics.median(per_query):.3f} ms median; {both} "
+             "(query, doc) scores shared with flat, equal bit for bit")
+        del eng
+
+    # (d) save the trained state, reload, adopt with no retrain
+    saved = str(Path(tmp) / "kb_ivf.ragdb")
+    kb.save(saved)
+    kb2 = KnowledgeBase.load(saved)
+    adopted = QueryEngine(kb2, device="cuda", index="ivf", guarantee="exact")
+    assert adopted.retrains == 0, adopted.retrains
+    assert np.array_equal(adopted.ivf.centroids, exact.ivf.centroids)
+    for q, a, w in zip(queries, adopted.query_batch(queries, k=TOP_K),
+                       want):
+        _same_results(a, w, q, cos_tol=1e-6)
+    _log(f"  (d) reloaded container adopted its IVF state (retrains "
+         f"{adopted.retrains}, centroids equal) and served the same ids "
+         "and scores")
+    del adopted, kb2, exact
+
+    # (e) the postings prefilter: subset rows, flat kernel scores
+    pre = Retriever(kb, prefilter=True, engine=flat)
+    for code, w in zip(ent_queries, want):
+        got = pre.query(code, k=TOP_K)
+        assert got and got[0].doc_id == f"doc_{entities[code]:05d}.txt"
+        _same_results(got, w[:len(got)], code, cos_tol=1e-6)
+    _log(f"  (e) prefilter: {len(ent_queries)} entity codes give the flat "
+         "top doc, and the flat kernel scores of their subset rows")
+
+    # (f) the single-query path: hsf_score then top_k, counted here
+    q_arrays = [flat._query_arrays(q) for q in queries]
+    qv = torch.from_numpy(np.stack([a for a, _ in q_arrays])).cuda()
+    qs = torch.from_numpy(np.stack([b for _, b in q_arrays])).cuda()
+    dv, ds = flat.doc_vecs, flat.doc_sigs
+    map_eng = QueryEngine(kb, device="cuda", scoring_path="map")
+    map_want = map_eng.query_batch(queries, k=TOP_K)
+    ops.reset_counts()
+    tk_ops.reset_counts()
+    single, from_map = [], []
+    for i in range(len(queries)):
+        scores = hsf.hsf_scores_kernel(dv, ds, qv[i], qs[i], ALPHA, BETA)
+        single.append(tk_ops.top_k(scores, TOP_K))
+        from_map.append(tk_ops.top_k(
+            hsf.hsf_scores(dv, ds, qv[i], qs[i], ALPHA, BETA), TOP_K))
+    torch.cuda.synchronize()
+    score_launches = ops.single_counts["launches"]
+    topk_launches = tk_ops.counts["launches"]
+    assert score_launches == len(queries), score_launches
+    assert topk_launches == 2 * len(queries), topk_launches
+    pv, pi = ref.hsf_score_topk_ref(dv, ds, qv, qs, ALPHA, BETA, TOP_K + 32)
+    kv = torch.stack([v for v, _ in single]).cpu().numpy()
+    ki = torch.stack([i for _, i in single]).cpu().numpy()
+    err = _check_against_plain(np, kv, ki, pv.cpu().numpy(),
+                               pi.cpu().numpy(), tk_ops.ID_SENTINEL,
+                               "single-query path")
+    for q, (v, i), w in zip(queries, from_map, map_want):
+        assert i.tolist() == [flat._row_of[r.doc_id] for r in w], q
+        assert v.tolist() == [r.score for r in w], q
+    _log(f"  (f) single-query path: hsf_score launches {score_launches}, "
+         f"top_k launches {topk_launches}; ids equal the flat kernel path "
+         f"under the near-tie rule (max |Δscore| {err:.2e}); top_k of the "
+         "map-path scores gives the map engine's ids and scores exactly")
+    return score_launches, topk_launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -637,6 +1045,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.hsf_score import ops, ref
+    from repro_torch.kernels.topk import ops as tk_ops
+    from repro_torch.kernels.topk import ref as tk_ref
     from repro_torch.models import transformer as T
 
     t_start = time.perf_counter()
@@ -661,24 +1071,32 @@ def main() -> int:
     _log("phase 2: kernels against their plain versions on the card")
     max_err = phase_kernel(torch, np, ops, ref)
     fa_max_err = phase_flash_kernel(torch, fa_ops, fa_ref)
+    score_max_err = phase_hsf_score_kernel(torch, np, ops, ref)
+    topk_max_err = phase_topk_kernel(torch, np, tk_ops, tk_ref)
 
-    _log("phase 3: main path (ingest, serve + generate, reload, serve + "
-         "generate)")
     with tempfile.TemporaryDirectory() as tmp:
-        launches, fa_launches = phase_main_path(torch, ops, fa_ops, tmp)
+        _log("phase 3: main path (ingest, serve + generate, reload, serve + "
+             "generate)")
+        launches, fa_launches, ctx = phase_main_path(torch, ops, fa_ops, tmp)
 
-    _log("phase 4: HSF timings at the serving shape")
-    timing = phase_timings(torch, ops, ref)
+        _log("phase 4: HSF and top-k timings at the serving shape")
+        timing = phase_timings(torch, ops, ref)
+        new_timing = phase_new_kernel_timings(torch, ops, ref, tk_ops, tk_ref)
 
-    cfg = get_arch(ARCH).config
-    model = _served_model(torch, T, cfg)
-    _log(f"phase 5: {ARCH} FULL prefill logits, flash kernel vs blockwise")
-    phase_cross_check(torch, T, model, cfg)
+        cfg = get_arch(ARCH).config
+        model = _served_model(torch, T, cfg)
+        _log(f"phase 5: {ARCH} FULL prefill logits, flash kernel vs blockwise")
+        phase_cross_check(torch, T, model, cfg)
 
-    _log("phase 6: flash attention and generation timings")
-    fa_timing, _ = phase_generation_timings(torch, T, model, cfg, fa_ops,
-                                            fa_ref)
-    del model
+        _log("phase 6: flash attention and generation timings")
+        fa_timing, _ = phase_generation_timings(torch, T, model, cfg, fa_ops,
+                                                fa_ref)
+        del model
+        torch.cuda.empty_cache()
+
+        _log("phase 7: the IVF index plane at 65,536 docs")
+        score_launches, topk_launches = phase_ivf(torch, np, ops, tk_ops,
+                                                  ctx, tmp)
     _log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -697,6 +1115,22 @@ def main() -> int:
         "launches": fa_launches,
         "max_abs_err": fa_max_err,
         **fa_timing,
+    }, {
+        "name": "hsf_score",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/hsf_score.cu",
+        "replaces": "src/repro/kernels/hsf_score/hsf_score.py:79",
+        "launches": score_launches,
+        "max_abs_err": score_max_err,
+        **new_timing["score"],
+    }, {
+        "name": "topk",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/topk.cu",
+        "replaces": "src/repro/kernels/topk/topk.py:74",
+        "launches": topk_launches,
+        "max_abs_err": topk_max_err,
+        **new_timing[(N_DOCS, TOP_K)],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,8 +33,19 @@ and adds three things a multi-user deployment needs:
 3. **Query-vector LRU cache** — keyed on the canonicalized query text,
    invalidated only when the idf statistics change.
 
-Only the flat index is ported; ``index="ivf"`` / ``"ivf-sharded"`` raise
-``NotImplementedError`` until the index-plane slice of the port.
+4. **Clustered index plane** — ``index="ivf"`` (default ``"flat"``)
+   routes queries through the IVF probe/rerank subsystem
+   (src/repro_torch/index/): score √N centroids on the host, gather the
+   top-``nprobe`` clusters' rows on the device, rerank with the exact
+   HSF through the same ``score_batch_arrays`` dispatch — sublinear scan
+   cost, exact scores within the probed set, and ``guarantee="exact"``
+   widens probes until the top-k is provably identical to the flat
+   scan.  The index rides the same dirty-row log as the tensors
+   (reassign-on-refresh, drift-triggered retrain) and persists via
+   ``kb.index_state`` in the JAX package's format, so either package
+   adopts the other's trained index without a retrain.
+   ``index="ivf-sharded"`` raises ``NotImplementedError`` until the
+   multi-device slice of the port.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no card present it raises (no silent CPU
@@ -55,6 +66,7 @@ from repro_torch.core import hsf, signature as sigmod
 from repro_torch.core.ingest import KnowledgeBase
 from repro_torch.core.tokenizer import normalize
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.metrics import global_registry
 
 # shared reentrant no-op scope for the explain=False query path
 _NULL_CTX = contextlib.nullcontext()
@@ -79,6 +91,8 @@ class RefreshStats:
     rows_patched: int = 0   # device rows updated (patched clone)
     restacked: bool = False  # row layout changed (add/remove) → host restack
     reweighted: bool = False  # idf changed → global reweight pass
+    index_reassigned: int = 0  # dirty rows re-clustered (index plane)
+    index_retrained: bool = False  # drift threshold hit → k-means retrain
     n_docs: int = 0
     seconds: float = 0.0
 
@@ -319,6 +333,23 @@ def pack_query_arrays(
     return qv, qs
 
 
+def _record_ivf_stats(s) -> None:
+    """Surface the per-dispatch ``IVFSearchStats`` as metrics in the obs
+    global registry (the JAX engine's names)."""
+    if s is None:
+        return
+    reg = global_registry()
+    reg.histogram("ragdb_ivf_probed_fraction",
+                  "fraction of clusters probed per dispatch").record(
+        float(s.probed_fraction))
+    reg.histogram("ragdb_ivf_widen_rounds",
+                  "probe/widen rounds per dispatch").record(float(s.rounds))
+    reg.counter("ragdb_ivf_candidate_rows_total",
+                "candidate rows gathered for rerank").inc(
+        int(s.candidate_rows))
+    reg.counter("ragdb_ivf_searches_total", "ivf dispatches").inc()
+
+
 def _pad_row_update(rows: np.ndarray, block: np.ndarray):
     """Pad a row-scatter update to a power-of-two row count.  Padding
     duplicates row 0 — a scatter writing identical content twice is
@@ -348,8 +379,9 @@ class QueryEngine:
     ``add_text``/``sync``/removal; refresh cost is O(changed docs).
     """
 
-    INDEX_KINDS = ("flat",)
-    UNPORTED_INDEX_KINDS = ("ivf", "ivf-sharded")
+    INDEX_KINDS = ("flat", "ivf")
+    UNPORTED_INDEX_KINDS = ("ivf-sharded",)
+    GUARANTEES = ("probe", "exact")
 
     def __init__(
         self,
@@ -362,22 +394,50 @@ class QueryEngine:
         cache_size: int = 256,
         max_batch: int = 256,
         index: str = "flat",
+        nprobe: int = 8,
+        guarantee: str = "probe",
+        n_clusters: int | None = None,
+        retrain_drift: float = 0.3,
+        ivf_seed: int = 0,
+        n_shards: int | None = None,
         device=None,
     ):
-        if index in self.UNPORTED_INDEX_KINDS:
+        if index in self.UNPORTED_INDEX_KINDS or n_shards is not None:
             raise NotImplementedError(
-                f"index={index!r} belongs to the index-plane slice of the "
-                "PyTorch port, which is not ported yet; use index='flat'")
+                "index='ivf-sharded' and n_shards belong to the multi-device "
+                "slice of the PyTorch port (ROADMAP Queue 1 item 8), which "
+                "is not ported yet; use index='flat' or 'ivf'")
         if index not in self.INDEX_KINDS:
             raise ValueError(
                 f"index must be one of {self.INDEX_KINDS}, got {index!r}")
+        if guarantee not in self.GUARANTEES:
+            raise ValueError(
+                f"guarantee must be one of {self.GUARANTEES}, "
+                f"got {guarantee!r}")
+        if index != "flat" and (alpha < 0 or beta < 0):
+            # the cluster pruning bound assumes non-negative HSF weights
+            raise ValueError(
+                f"index={index!r} requires alpha >= 0 and beta >= 0")
+        if nprobe < 1:
+            raise ValueError(f"nprobe must be >= 1, got {nprobe}")
         self.kb = kb
         self.alpha = float(alpha)
         self.beta = float(beta)
         self.device = resolve_device(device)
+        # ---- index plane (docs/ARCHITECTURE.md §9) ----------------------
+        # "flat" (default) scans all N docs — the bit-stability baseline.
+        # "ivf" probes the top-`nprobe` clusters and reranks candidates
+        # with the exact HSF; `guarantee="exact"` widens probes until the
+        # top-k provably equals the flat scan (bit-identical).
         self.index = index
-        self.guarantee = "probe"  # EXPLAIN plans report it; flat is exact
-        self.ivf = None  # no clustered index (the ledger reads it)
+        self.nprobe = int(nprobe)
+        self.guarantee = guarantee
+        self.n_clusters = n_clusters
+        self.retrain_drift = float(retrain_drift)
+        self.ivf_seed = int(ivf_seed)
+        self.ivf = None  # IVFIndex | None (see refresh)
+        self._last_index_stats = None
+        self.retrains = 0  # cumulative k-means (re)trains this engine ran
         self.scoring_path = resolve_scoring_path(
             scoring_path, use_kernel=use_kernel, gemm_batch=gemm_batch,
             device=self.device,
@@ -412,11 +472,20 @@ class QueryEngine:
     # ---- incremental materialization -----------------------------------
 
     def refresh(self) -> RefreshStats:
-        """Bring device tensors up to date with the KB (O(changed docs))."""
+        """Bring device tensors up to date with the KB (O(changed docs)).
+
+        When ``index="ivf"`` the cluster index rides the same dirty-row
+        delta: changed docs reassign to their nearest centroid (O(U)),
+        layout restacks remap assignments by doc id, and the drift
+        counter triggers a full k-means retrain past ``retrain_drift``
+        (see ``_sync_ivf``).
+        """
         t0 = time.perf_counter()
         kb = self.kb
         stats = RefreshStats()
         target = kb.version
+        changed_ids: list[str] | None = None
+        old_row_of: dict[str, int] = {}
         if self._synced < 0:
             stats.changed = kb.n_docs
             stats.restacked = True
@@ -425,7 +494,12 @@ class QueryEngine:
         elif target != self._synced:
             changed, removed = kb.changes_since(self._synced)
             stats.changed, stats.removed = len(changed), len(removed)
+            changed_ids = changed
+            old_row_of = self._row_of  # pre-delta layout (for ivf remap)
             self._apply_delta(changed, stats)
+        if self.index != "flat" and (self.ivf is None
+                                     or changed_ids is not None):
+            self._sync_ivf(changed_ids, old_row_of, stats)
         self._synced = target
         stats.n_docs = len(self.doc_ids)
         stats.seconds = time.perf_counter() - t0
@@ -533,18 +607,108 @@ class QueryEngine:
             self.doc_vecs = _patched(self.doc_vecs, rows_p, block_p)
             stats.rows_patched = len(rows)
 
+    # ---- index plane maintenance (index="ivf") --------------------------
+
+    def _sync_ivf(self, changed_ids: list[str] | None,
+                  old_row_of: dict[str, int], stats: RefreshStats) -> None:
+        """Keep the cluster index aligned with the device tensors.
+
+        Cold: adopt the KB's persisted index state when it matches the
+        current doc layout and content (no cold retrain on load — the
+        state may come from either package), else train on the device.
+        Delta: changed rows reassign (O(U)); restacks remap assignments
+        by doc id; the drift counter triggers a retrain past
+        ``retrain_drift``.  Every state change is written back to
+        ``kb.index_state`` so ``save``/``save_delta`` persist it.
+        """
+        from repro_torch.index.ivf import IVFIndex, ids_digest
+
+        def _train():
+            return IVFIndex.train(
+                self.doc_vecs, self.doc_sigs,
+                n_clusters=self.n_clusters, seed=self.ivf_seed,
+            )
+
+        n = len(self.doc_ids)
+        if n == 0:
+            self.ivf = None
+            return
+        if self.ivf is None:
+            st = self.kb.index_state
+            if (st is not None and st.get("kind") == "ivf"
+                    and len(st["assign"]) == n
+                    and st.get("ids_sha") == ids_digest(self._ivf_state_key())):
+                # the key covers doc ids AND content hashes: a stale
+                # state (doc rewritten in place with no live index
+                # maintenance) must never adopt — its sig_union/radius
+                # could underestimate a cluster and break exactness
+                self.ivf = IVFIndex.from_state(st)
+                return
+            self.ivf = _train()
+            stats.index_retrained = True
+            self._note_retrain()
+            self._write_index_state()
+            return
+        if stats.restacked:
+            # layout changed: carry surviving rows' clusters by doc id;
+            # new/changed rows (−1) assign to their nearest centroid
+            old_assign = self.ivf.assign
+            changed_set = set(changed_ids or ())
+            carried = np.full((n,), -1, np.int32)
+            for r, i in enumerate(self.doc_ids):
+                old_r = old_row_of.get(i)
+                if old_r is not None and i not in changed_set:
+                    carried[r] = old_assign[old_r]
+            self.ivf = self.ivf.remap(carried, self.doc_vecs, self.doc_sigs)
+            stats.index_reassigned = int(np.sum(carried < 0))
+        elif changed_ids:
+            # O(U) path: gather only the dirty rows on the device before
+            # the host copy — never a full [N, ·] device→host copy
+            rows = np.array([self._row_of[i] for i in changed_ids], np.int32)
+            rows_t = torch.from_numpy(rows.astype(np.int64)).to(self.device)
+            self.ivf = self.ivf.reassign(
+                rows, self.doc_vecs.index_select(0, rows_t),
+                self.doc_sigs.index_select(0, rows_t))
+            stats.index_reassigned = len(rows)
+        else:
+            return  # metadata-only mutation: index untouched
+        if self.ivf.needs_retrain(self.retrain_drift):
+            self.ivf = _train()
+            stats.index_retrained = True
+            self._note_retrain()
+        self._write_index_state()
+
+    def _note_retrain(self) -> None:
+        self.retrains += 1
+        global_registry().counter(
+            "ragdb_ivf_retrains_total",
+            "k-means (re)trains across all engines").inc()
+
+    def _ivf_state_key(self) -> list[str]:
+        """Layout **and content** key the persisted index is pinned to:
+        one ``"id\\x01sha256"`` token per doc in engine row order."""
+        recs = self.kb.records
+        return [f"{i}\x01{recs[i].sha256}" for i in self.doc_ids]
+
+    def _write_index_state(self) -> None:
+        """Publish the index state into the KB so the persistence plane
+        journals it alongside the doc segments (core/ingest.py)."""
+        self.kb.set_index_state(self.ivf.state_dict(self._ivf_state_key()))
+
     def index_stats(self) -> dict:
-        """The JAX engine's index counters; a flat index has no probes,
-        so the probe fields are None."""
+        """Probe accounting of the most recent ivf dispatch (None fields
+        when the engine is flat or hasn't served an ivf query yet; the
+        sharded plane's fields stay None until it is ported)."""
+        s = self._last_index_stats
         return {
             "index": self.index,
-            "n_clusters": 0,
-            "drift": 0,
-            "retrains": 0,
-            "probed_fraction": None,
-            "clusters_probed": None,
-            "candidate_rows": None,
-            "rounds": None,
+            "n_clusters": self.ivf.n_clusters if self.ivf else 0,
+            "drift": self.ivf.drift if self.ivf else 0,
+            "retrains": self.retrains,
+            "probed_fraction": s.probed_fraction if s else None,
+            "clusters_probed": s.clusters_probed if s else None,
+            "candidate_rows": s.candidate_rows if s else None,
+            "rounds": s.rounds if s else None,
             "n_shards": None,
             "merge_seconds": None,
         }
@@ -628,14 +792,26 @@ class QueryEngine:
                 qv, qs = pack_query_arrays(
                     pairs, self.kb.dim, self.kb.sig_words)
             n = len(self.doc_ids)
-            vals, idx, cos, ind = score_batch_arrays(
-                self.doc_vecs, self.doc_sigs, qv, qs,
-                scoring_path=self.scoring_path, k=min(k, n),
-                alpha=self.alpha, beta=self.beta, n_docs=n,
-                kernel_operands=(
-                    self._kernel_operands() if self.use_kernel else None
-                ),
-            )
+            stats = None
+            if self.index != "flat" and self.ivf is not None:
+                vals, idx, cos, ind, stats = self.ivf.search(
+                    self.doc_vecs, self.doc_sigs, qv, qs,
+                    b=b, k=min(k, n), nprobe=self.nprobe,
+                    guarantee=self.guarantee,
+                    scoring_path=self.scoring_path,
+                    alpha=self.alpha, beta=self.beta, explain=explain,
+                )
+                self._last_index_stats = stats
+                _record_ivf_stats(stats)
+            else:
+                vals, idx, cos, ind = score_batch_arrays(
+                    self.doc_vecs, self.doc_sigs, qv, qs,
+                    scoring_path=self.scoring_path, k=min(k, n),
+                    alpha=self.alpha, beta=self.beta, n_docs=n,
+                    kernel_operands=(
+                        self._kernel_operands() if self.use_kernel else None
+                    ),
+                )
             results = results_from_topk(self.doc_ids, b, vals, idx, cos, ind)
         if not explain:
             return results
@@ -645,7 +821,7 @@ class QueryEngine:
         return results, explain_mod.PlanBatch(
             lambda: explain_mod.plans_from_dispatch(
                 texts, k, index=index, scoring_path=path, guarantee=guar,
-                n_docs=n, stages=stages,
+                n_docs=n, stats=stats, stages=stages,
                 vector_cache_hits=vec_hits, total_s=total_s))
 
     def _kernel_operands(self):

@@ -3,8 +3,9 @@
     Score(Q, D) = α · cos(v_Q, v_D) + β · 1_substr(Q, D)
 
 with the containment form of the indicator (signature.py).  This module
-is the plain PyTorch implementation plus the dispatcher that routes the
-serving hot loop to the fused CUDA kernel (kernels/hsf_score).
+is the plain PyTorch implementation plus the dispatchers to the CUDA
+kernels (kernels/hsf_score): the fused batched top-k that carries the
+serving hot loop, and the single-query score.
 
 Default weights follow the paper's reported top score for the injected
 entity (1.5753 with cosine ≈ 0.575 and a unit boost): α = 1.0, β = 1.0.
@@ -86,6 +87,21 @@ def hsf_scores_batched(
 
     return hsf_score_matrix(doc_vecs, doc_sigs, query_vecs, query_sigs,
                             alpha, beta)
+
+
+def hsf_scores_kernel(
+    doc_vecs, doc_sigs, query_vec, query_sig,
+    alpha: float = DEFAULT_ALPHA,
+    beta: float = DEFAULT_BETA,
+):
+    """Single-query kernel dispatcher (kernels/hsf_score ``hsf_score``,
+    ``csrc/hsf_score.cu`` on the card): float32 [n] scores, docs and
+    query in f32 or bf16 summed in f32.  Not bit-stable against
+    ``hsf_scores`` (a different summation order)."""
+    from repro_torch.kernels.hsf_score import ops as _ops
+
+    return _ops.hsf_score(doc_vecs, doc_sigs, query_vec, query_sig,
+                          alpha=alpha, beta=beta)
 
 
 def hsf_topk_batched_kernel(

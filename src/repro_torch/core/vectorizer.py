@@ -102,10 +102,9 @@ class HashedTfIdf:
     def build_unweighted_matrix(self, term_counts: list[TermCounts]) -> np.ndarray:
         """Batch tf·sign scatter, float32 [n, dim].
 
-        One concatenated scatter-add instead of a per-doc loop — this is
-        the same bag-accumulation dataflow as the recsys EmbeddingBag
-        (models/recsys/embedding.py); on TPU it lowers to the
-        embedding_bag kernel.
+        One concatenated host scatter-add (``np.add.at``) instead of a
+        per-doc loop — the same bag-accumulation dataflow as the recsys
+        EmbeddingBag, but no kernel runs here.
         """
         n = len(term_counts)
         out = np.zeros((n, self.dim), dtype=np.float32)

@@ -1,1 +1,4 @@
-from repro_torch.kernels.hsf_score.ops import hsf_score_batched  # noqa: F401
+from repro_torch.kernels.hsf_score.ops import (  # noqa: F401
+    hsf_score,
+    hsf_score_batched,
+)

@@ -1,9 +1,12 @@
-"""Wrapper of the fused batched HSF top-k kernel (``csrc/hsf_topk.cu``).
+"""Wrappers of the HSF kernels: the fused batched top-k
+(``csrc/hsf_topk.cu``) and the single-query score (``csrc/hsf_score.cu``).
 
 Keeps the JAX package's ``hsf_score_batched`` / ``pad_docs_for_kernel``
 signatures and contract: (vals [B, k'], ids [B, k']), k' = min(k, N),
 ordered (score desc, id asc); rows ``>= n_valid`` score -inf; slots
-that cannot fill carry (-inf, ``ID_SENTINEL``).
+that cannot fill carry (-inf, ``ID_SENTINEL``).  ``hsf_score`` keeps
+the JAX package's single-query contract: f32 [N] scores, f32 or bf16
+docs and query summed in f32, n = 0 → an empty vector with no launch.
 
 Dispatch is by the tensors' device and nothing else: a CUDA tensor
 launches the kernel (or raises — wrong dtype, device or layout, a
@@ -21,7 +24,10 @@ import threading
 
 import torch
 
-from repro_torch.kernels.hsf_score.ref import hsf_score_topk_ref
+from repro_torch.kernels.hsf_score.ref import (
+    hsf_score_ref,
+    hsf_score_topk_ref,
+)
 
 KPAD = 128               # widest k the kernel serves
 ID_SENTINEL = 2**31 - 1  # id of never-filled slots
@@ -30,17 +36,21 @@ _counts_lock = threading.Lock()
 # launches: fused kernel launches (both passes of one call count once);
 # unfused: k > KPAD calls served by the plain version
 counts = {"launches": 0, "unfused": 0}
+# launches of the single-query kernel (``hsf_score``)
+single_counts = {"launches": 0}
+_SINGLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_counts() -> None:
     with _counts_lock:
-        for key in counts:
-            counts[key] = 0
+        for table in (counts, single_counts):
+            for key in table:
+                table[key] = 0
 
 
-def _bump(key: str) -> None:
+def _bump(key: str, table=counts) -> None:
     with _counts_lock:
-        counts[key] += 1
+        table[key] += 1
 
 
 def pad_docs_for_kernel(doc_vecs, doc_sigs, block_docs: int = 512):
@@ -67,6 +77,22 @@ def _lib():
     lib.hsf_topk_tiles_for.restype = ctypes.c_int
     lib.hsf_topk_error_string.argtypes = [i]
     lib.hsf_topk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _single_lib():
+    """The single-query kernel's library, signatures declared."""
+    from repro_torch.kernels import build
+
+    lib = build.load("hsf_score")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.hsf_score_launch.argtypes = [p, p, p, p, i, i, i, i, f, f, p, p]
+    lib.hsf_score_launch.restype = ctypes.c_int
+    lib.hsf_score_max_words.argtypes = []
+    lib.hsf_score_max_words.restype = ctypes.c_int
+    lib.hsf_score_error_string.argtypes = [i]
+    lib.hsf_score_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -167,3 +193,78 @@ def hsf_score_batched(
             doc_vecs, doc_sigs, query_vecs, query_sigs, alpha, beta,
             k_eff, n_valid=n_valid))
     raise ValueError(f"no hsf_score_batched for device {doc_vecs.device}")
+
+
+def _check_single(doc_vecs, doc_sigs, query_vec, query_sig) -> None:
+    dev = doc_vecs.device
+    if doc_vecs.dtype not in _SINGLE_DTYPES \
+            or query_vec.dtype != doc_vecs.dtype:
+        raise TypeError(
+            "doc_vecs and query_vec must both be float32 or both "
+            f"bfloat16, got {doc_vecs.dtype} and {query_vec.dtype}")
+    for name, t, dim in (("doc_vecs", doc_vecs, 2), ("doc_sigs", doc_sigs, 2),
+                         ("query_vec", query_vec, 1),
+                         ("query_sig", query_sig, 1)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, doc_vecs on {dev}")
+        if t.dim() != dim or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dim}-D tensor")
+    for name, t in (("doc_sigs", doc_sigs), ("query_sig", query_sig)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be torch.int32, got {t.dtype}")
+    n, d = doc_vecs.shape
+    if doc_sigs.shape[0] != n or query_vec.shape[0] != d \
+            or query_sig.shape[0] != doc_sigs.shape[1]:
+        raise ValueError(
+            f"shape mismatch: docs {tuple(doc_vecs.shape)}/"
+            f"{tuple(doc_sigs.shape)}, query {tuple(query_vec.shape)}/"
+            f"{tuple(query_sig.shape)}")
+    if n >= 2**31:
+        raise ValueError("N must fit the kernel's int32 row index")
+
+
+def _launch_single(doc_vecs, doc_sigs, query_vec, query_sig, alpha, beta):
+    _check_single(doc_vecs, doc_sigs, query_vec, query_sig)
+    lib = _single_lib()
+    n, d = doc_vecs.shape
+    w = doc_sigs.shape[1]
+    if d + w > lib.hsf_score_max_words():
+        raise ValueError(
+            f"D + W = {d + w} exceeds the kernel's shared-memory query "
+            f"buffer of {lib.hsf_score_max_words()} words")
+    out = torch.empty((n,), dtype=torch.float32, device=doc_vecs.device)
+    with torch.cuda.device(doc_vecs.device):
+        stream = torch.cuda.current_stream(doc_vecs.device).cuda_stream
+        err = lib.hsf_score_launch(
+            doc_vecs.data_ptr(), doc_sigs.data_ptr(), query_vec.data_ptr(),
+            query_sig.data_ptr(), n, d, w, _SINGLE_DTYPES[doc_vecs.dtype],
+            float(alpha), float(beta), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            "hsf_score launch failed: "
+            f"{lib.hsf_score_error_string(err).decode()} (cudaError {err})")
+    _bump("launches", single_counts)
+    return out
+
+
+def hsf_score(
+    doc_vecs,    # [N, D] float32 or bfloat16
+    doc_sigs,    # [N, W] int32
+    query_vec,   # [D], doc_vecs' dtype
+    query_sig,   # [W] int32
+    *,
+    alpha: float = 1.0,
+    beta: float = 1.0,
+):
+    """Single-query HSF scores, float32 [N]: α·(docs·q) + β·containment,
+    summed in f32.  An empty corpus returns an empty [0] vector without
+    a launch; a ragged N needs no padding (the kernel masks its edge)."""
+    if doc_vecs.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.float32, device=doc_vecs.device)
+    if doc_vecs.device.type == "cuda":
+        return _launch_single(doc_vecs, doc_sigs, query_vec, query_sig,
+                              alpha, beta)
+    if doc_vecs.device.type == "cpu":
+        return hsf_score_ref(doc_vecs, doc_sigs, query_vec, query_sig,
+                             alpha, beta)
+    raise ValueError(f"no hsf_score for device {doc_vecs.device}")

@@ -1,9 +1,12 @@
-"""Plain PyTorch version of the fused HSF top-k kernel (paper §4).
+"""Plain PyTorch versions of the HSF kernels (paper §4).
 
-Full [B, N] scores, then a stable sort — the expensive way the kernel
-avoids, and the function it must equal.  Mirrors the JAX package's
-``hsf_score_topk_ref``.  CPU tensors use it, and so do the tests; the
-wrapper never takes it for a CUDA tensor when k fits the kernel.
+``hsf_score_ref`` is the single-query kernel's function (``csrc/
+hsf_score.cu``): one f32 matvec plus the containment test.
+``hsf_score_topk_ref`` is the fused top-k kernel's (``csrc/
+hsf_topk.cu``): full [B, N] scores, then a stable sort — the expensive
+way the kernel avoids.  Both mirror the JAX package's ``ref.py``.  CPU
+tensors use them, and so do the tests; the wrappers never take them for
+a CUDA tensor when the shape fits the kernel.
 """
 from __future__ import annotations
 
@@ -22,6 +25,16 @@ def containment_matrix(doc_sigs: torch.Tensor,
         qw = query_sigs[:, wi, None]                     # [B, 1]
         ok &= (doc_sigs[None, :, wi] & qw) == qw         # [B, N]
     return ok.to(torch.float32)
+
+
+def hsf_score_ref(doc_vecs, doc_sigs, query_vec, query_sig,
+                  alpha: float, beta: float) -> torch.Tensor:
+    """α·(docs @ q) + β·containment — float32 [N].  Docs and query are
+    widened to f32 first, so a bf16 input is summed in f32, as the
+    kernel does."""
+    cos = torch.mv(doc_vecs.to(torch.float32), query_vec.to(torch.float32))
+    ind = containment_matrix(doc_sigs, query_sig[None, :])[0]
+    return alpha * cos + beta * ind
 
 
 def hsf_score_matrix(doc_vecs, doc_sigs, query_vecs, query_sigs,

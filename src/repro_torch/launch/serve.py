@@ -19,8 +19,12 @@ Runs on ``cuda`` unless ``--device cpu`` is given.  On ``cuda`` the LM
 is ``--arch``'s full configuration (llama3.2-3b: 28 layers, d_model
 3072, bf16) with random weights from ``torch.Generator`` seed 0; on the
 CPU it is the arch's SMOKE configuration, as the JAX driver serves on
-its CPU host.  Multi-tenant mode (``--tenant-root``) and the IVF index
-(``--index``) come with later slices of the port.
+its CPU host.  ``--index ivf`` serves through the clustered index plane
+(k-means on the serving device at first use, or the container's
+persisted index state adopted without a retrain; ``--nprobe``,
+``--guarantee exact`` for results provably equal to the flat scan).
+``--index ivf-sharded``/``--shards`` and multi-tenant mode
+(``--tenant-root``) come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -91,6 +95,20 @@ def main(argv=None):
                     choices=["auto", "map", "gemm", "kernel"],
                     help="auto = the CUDA kernel on a CUDA device, the "
                     "bit-stable map path on the CPU")
+    ap.add_argument("--index", default="flat",
+                    choices=["flat", "ivf", "ivf-sharded"],
+                    help="flat = full scan; ivf = clustered probe/rerank "
+                    "(sublinear, exact HSF within the probed set); "
+                    "ivf-sharded is not ported yet")
+    ap.add_argument("--nprobe", type=int, default=8,
+                    help="clusters probed per query (index=ivf)")
+    ap.add_argument("--guarantee", default="probe",
+                    choices=["probe", "exact"],
+                    help="exact = widen probes until top-k provably "
+                    "matches the flat scan (index=ivf)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="cluster shards for index=ivf-sharded (not "
+                    "ported yet)")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default cuda; "
                     "pass cpu to run on the host)")
@@ -115,6 +133,11 @@ def main(argv=None):
                     "(runtime.health(): ok | degraded | critical with "
                     "reasons) after the run")
     args = ap.parse_args(argv)
+    if args.index == "ivf-sharded" or args.shards is not None:
+        raise NotImplementedError(
+            "--index ivf-sharded and --shards belong to the multi-device "
+            "slice of the PyTorch port (ROADMAP Queue 1 item 8), which is "
+            "not ported yet; use --index flat or ivf")
 
     if args.trace:
         obs_trace.enable()
@@ -137,6 +160,9 @@ def main(argv=None):
         max_batch=max(1, args.max_batch),
         flush_deadline=args.flush_deadline_ms / 1e3,
         scoring_path=args.scoring_path,
+        index=args.index,
+        nprobe=args.nprobe,
+        guarantee=args.guarantee,
         slo=_slo_from_args(args),
         device=args.device,
     )
@@ -155,7 +181,8 @@ def main(argv=None):
         runtime.metrics.reset()
         print(f"serving generation {runtime.generation} on "
               f"{runtime.engine.device} "
-              f"(scoring path: {runtime.engine.scoring_path}, "
+              f"(index: {runtime.engine.index}, "
+              f"scoring path: {runtime.engine.scoring_path}, "
               f"flush ≤ {args.flush_deadline_ms:.1f} ms, "
               f"batch ≤ {args.max_batch})")
         t0 = time.perf_counter()

@@ -5,7 +5,8 @@ resident, broken down by *plane*:
 
 - ``doc_matrix``     device doc vectors + signature matrix
 - ``ivf_state``      clustered-index arrays (centroids, bounds,
-                     members, and the sharded resident blocks)
+                     assignments, members: host numpy, the same bytes
+                     the JAX package counts for the same state)
 - ``kernel_operands`` block-aligned padded doc operands for the fused
                      kernel path
 - ``result_cache``   per-generation result-cache entries (host)

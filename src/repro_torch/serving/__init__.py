@@ -20,6 +20,12 @@ generation-pinned snapshot, cached per generation, and accounted in the
 metrics plane.  Engine kwargs (``device=``, ``scoring_path=``, ...)
 thread straight through.
 
+Index-plane knobs thread through the same way:
+``ServingRuntime(kb, index="ivf", nprobe=4, guarantee="exact")`` serves
+every flush from the generation's *frozen* IVF index (snapshots pin the
+immutable ``IVFIndex`` reference exactly like the doc tensors — readers
+never see a half-retrained index; docs/ARCHITECTURE.md §9).
+
 Observability (docs/ARCHITECTURE.md §12): ``ServingMetrics`` is backed
 by a labeled ``repro_torch.obs`` metrics registry, and the scheduler
 emits per-stage request spans into the process tracer when
@@ -184,12 +190,14 @@ class ServingRuntime:
     def render_metrics(self) -> str:
         """One Prometheus text exposition for the whole runtime: the
         per-runtime serving registry plus the process-global obs
-        registry (journal bytes, publish lag, sanitizer trips)."""
+        registry (IVF probe stats, journal bytes, publish lag, sanitizer
+        trips)."""
         return render_prometheus(self.metrics.registry, global_registry())
 
     def index_stats(self) -> dict:
-        """The engine's index counters (probe fields are None: only the
-        flat index is ported)."""
+        """The engine's clustered-index health counters (probed
+        fraction, widening rounds, retrains); probe fields are None
+        on a flat index or before the first ivf dispatch."""
         return self.engine.index_stats()
 
     def resources(self) -> dict:

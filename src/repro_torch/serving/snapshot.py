@@ -69,9 +69,14 @@ class EngineSnapshot:
     scoring_path: str
     kernel_operands: tuple | None  # kernel-ready doc operands
     max_batch: int
-    # the flat index is the only one ported; EXPLAIN plans report these
+    # index plane pin: the engine's IVFIndex is immutable after build
+    # (maintenance *rebinds* engine.ivf, same as the tensors), so the
+    # capture is one reference — readers serve the clustered index of
+    # generation g lock-free while the writer retrains/reassigns g+1
     index_kind: str = "flat"
     guarantee: str = "probe"
+    ivf: object | None = None
+    nprobe: int = 8
 
     @staticmethod
     def capture(engine: QueryEngine) -> "EngineSnapshot":
@@ -95,6 +100,8 @@ class EngineSnapshot:
             max_batch=engine.max_batch,
             index_kind=engine.index,
             guarantee=engine.guarantee,
+            ivf=engine.ivf,
+            nprobe=engine.nprobe,
         )
 
     @property
@@ -162,12 +169,21 @@ class EngineSnapshot:
                 qv, qs = pack_query_arrays(
                     pairs, self.vectorizer.dim, self.sig_words)
             n = len(self.doc_ids)
-            vals, idx, cos, ind = score_batch_arrays(
-                self.doc_vecs, self.doc_sigs, qv, qs,
-                scoring_path=self.scoring_path, k=min(k, n),
-                alpha=self.alpha, beta=self.beta, n_docs=n,
-                kernel_operands=self.kernel_operands,
-            )
+            stats = None
+            if self.index_kind != "flat" and self.ivf is not None:
+                vals, idx, cos, ind, stats = self.ivf.search(
+                    self.doc_vecs, self.doc_sigs, qv, qs,
+                    b=len(texts), k=min(k, n), nprobe=self.nprobe,
+                    guarantee=self.guarantee, scoring_path=self.scoring_path,
+                    alpha=self.alpha, beta=self.beta, explain=explain,
+                )
+            else:
+                vals, idx, cos, ind = score_batch_arrays(
+                    self.doc_vecs, self.doc_sigs, qv, qs,
+                    scoring_path=self.scoring_path, k=min(k, n),
+                    alpha=self.alpha, beta=self.beta, n_docs=n,
+                    kernel_operands=self.kernel_operands,
+                )
             results = results_from_topk(self.doc_ids, len(texts),
                                         vals, idx, cos, ind)
         if not explain:
@@ -181,7 +197,7 @@ class EngineSnapshot:
         return results, explain_mod.PlanBatch(
             lambda: explain_mod.plans_from_dispatch(
                 texts, k, index=kind, scoring_path=path, guarantee=guar,
-                n_docs=n, stages=stages,
+                n_docs=n, stats=stats, stages=stages,
                 vector_cache_hits=None, generation=gen, total_s=total_s))
 
 

@@ -177,8 +177,10 @@ def test_container_adoption_matches_fresh_build(tmp_path):
 def test_engine_contracts():
     texts, _ = _texts(10)
     kb = _kb(KnowledgeBase, texts, 512)
-    with pytest.raises(NotImplementedError, match="index-plane"):
-        QueryEngine(kb, index="ivf", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        QueryEngine(kb, index="ivf-sharded", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        QueryEngine(kb, index="ivf", n_shards=2, device="cpu")
     with pytest.raises(ValueError):
         QueryEngine(kb, index="hnsw", device="cpu")
     with pytest.raises(ValueError):
