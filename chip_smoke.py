@@ -21,7 +21,12 @@ Phases (any failure raises and the script exits non-zero):
    its edges (ragged N, D without 16-byte rows, W=3, n = 0, the boost
    exactly β); then the streaming top-k at N=65,536 and 16,777,216 with
    k = 1, 16, 128, small N with k = N, duplicate-heavy and -inf-laden
-   scores (ids and values exactly equal).
+   scores (ids and values exactly equal); then the EmbeddingBag kernel
+   on a dlrm-rm2 FULL table (48 GB): the serve_p99 and serve_bulk
+   batches as bags, one row per bag (bit for bit), rows near row
+   187.7 M (byte offsets past 2³¹), empty, unsorted and duplicate
+   segments, weights, mean, one huge bag, a bf16 table, E = 7, 10, 16,
+   128 and 200.
 3. Main path: a 65,536-doc synthetic corpus with 64 entity codes,
    served through ``repro_torch.launch.serve.main`` (ingest → container
    save → micro-batched serving → generation with llama3.2-3b at full
@@ -54,6 +59,18 @@ Phases (any failure raises and the script exits non-zero):
    state saved, reloaded and adopted with no retrain; the postings
    prefilter; and the single-query path — ``hsf_scores_kernel`` then
    ``top_k`` per query — whose launches the ``kernels`` line reports.
+8. The recsys plane at full width: dlrm-rm2 FULL initialised on the
+   card (a 48.07 GB table, filled in place) and served through
+   ``make_recsys_step(kind="recsys_serve")`` at serve_p99 (512) and
+   serve_bulk (262,144), the serve_p99 logits held to the same forward
+   on the CPU over the rows the batch touches; the EmbeddingBag path
+   (``lookup_bags(use_kernel=True)`` over the served table, launches =
+   calls, no plain call), whose launches the ``kernels`` line reports;
+   retrieval of 1,000,000 candidates through the top-k kernel (ids and
+   values equal the plain top-k's); timings of the EmbeddingBag kernel
+   (kernel, sort + offsets, plain, ``F.embedding_bag``, bound) and of
+   the forward; a profiled serve step; then deepfm and autoint FULL
+   served, checked on the CPU and timed.
 
 The second line from the end is a JSON ``kernels`` record; the last is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -301,6 +318,160 @@ def phase_topk_kernel(torch, np, tk_ops, tk_ref):
         assert torch.equal(kv, pv), (name, kv[:8].tolist(), pv[:8].tolist())
         _log(f"  top_k == plain: {name:32s} k={k:3d} ids and values equal")
     return 0.0
+
+
+# ---------------------------------------------------------------------------
+# phase 2 (embedding bag) and phase 8: the recsys plane
+# ---------------------------------------------------------------------------
+
+# configs/dlrm_rm2.py FULL: 26 Criteo fields, E = 64, 187,767,808 table
+# rows (48.07 GB f32), at the shapes of configs/shapes.py
+SERVE_P99, SERVE_BULK = 512, 262_144
+RETRIEVAL_N, RETRIEVAL_PAD = 1_000_000, 1_000_448
+# embedding bag, kernel vs plain: f32 sums of the same products in
+# another order (the plain version adds with atomics), so per element
+# |Δ| <= BAG_REL · Σ|w·x| over the bag + BAG_ABS; a bf16 table adds one
+# bf16 rounding of the result (2⁻⁷ relative)
+BAG_REL, BAG_ABS, BF16_ULP = 1e-5, 1e-6, 2.0 ** -7
+# full-width logits and scores, card against the CPU: the same f32
+# products summed in another order, relative to the largest magnitude
+RECSYS_TOL = 1e-4
+
+
+def _bag_magnitude(torch, table, idx, seg, w, n_bags):
+    """Σ|w·x| per bag and column, the scale of a sum's rounding error."""
+    rows = torch.index_select(table, 0, idx.long()).float().abs()
+    if w is not None:
+        rows = rows * w.abs()[:, None]
+    return torch.zeros((n_bags, table.shape[1]), device=table.device
+                       ).index_add_(0, seg.long(), rows)
+
+
+def _check_bag(torch, bag_ops, bag_ref, table, idx, seg, n_bags, w, mode,
+               name):
+    """Kernel against plain within the stated tolerance, and the same
+    bits on a second call.  Returns (kernel output, max |Δ|)."""
+    got = bag_ops.embedding_bag(table, idx, seg, n_bags, w, mode=mode)
+    torch.cuda.synchronize()
+    want = bag_ref.embedding_bag_ref(table, idx, seg, n_bags, w, mode=mode)
+    assert got.shape == want.shape and got.dtype == table.dtype, name
+    diff = (got.float() - want.float()).abs()
+    tol = BAG_REL * _bag_magnitude(torch, table, idx, seg, w, n_bags) \
+        + BAG_ABS
+    if table.dtype == torch.bfloat16:
+        tol = tol + BF16_ULP * want.float().abs()
+    bad = int((diff > tol).sum())
+    assert bad == 0, (name, bad, diff.max().item())
+    again = bag_ops.embedding_bag(table, idx, seg, n_bags, w, mode=mode)
+    assert torch.equal(got, again), (name, "other bits on a second call")
+    err = diff.max().item()
+    _log(f"  embedding_bag == plain: {name:36s} n={idx.shape[0]} "
+         f"bags={n_bags} E={table.shape[1]} {str(table.dtype)[6:]} {mode}: "
+         f"max |Δ| {err:.3e}, same bits twice")
+    return got, err
+
+
+def _serve_bags(torch, sparse, offs):
+    """A served batch [B, F] as bags: sample b's F rows are bag b."""
+    b, f = sparse.shape
+    flat = (torch.from_numpy(sparse).cuda() + offs[None, :]).reshape(-1)
+    seg = torch.arange(b, device="cuda", dtype=torch.int32
+                       ).repeat_interleave(f)
+    return flat, seg
+
+
+def phase_bag_kernel(torch, bag_ops, bag_ref, emb, rbase, pipeline):
+    """EmbeddingBag kernel against its plain version on a dlrm-rm2 FULL
+    table (48 GB): the serve_p99 and serve_bulk batches as bags (and
+    against ``lookup(...).sum(1)``), one row per bag (the row bit for
+    bit, at random places and at the table's last rows), unsorted and
+    duplicate segments with empty bags, weights, mean, rows near
+    187.7 M, one huge bag; then a bf16 table, deepfm's and autoint's
+    tables (E = 10, 16) and E = 7, 128, 200.  Returns the largest |Δ|
+    of the f32 cases."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    vocabs = rbase.CRITEO_VOCABS
+    t0 = time.perf_counter()
+    table = emb.init_tables(gen, vocabs, 64, "cuda")["table"]
+    torch.cuda.synchronize()
+    v = table.shape[0]
+    _log(f"  dlrm-rm2 table {tuple(table.shape)} f32 "
+         f"({table.numel() * 4 / 1e9:.2f} GB) filled in "
+         f"{time.perf_counter() - t0:.2f} s")
+    offs = emb.field_offsets(vocabs, "cuda")
+    cursor = pipeline.DataCursor(seed=12)
+    worst = 0.0
+    for b in (SERVE_P99, SERVE_BULK):
+        _, sparse, _ = pipeline.recsys_batch(cursor, b, vocabs, 13)
+        flat, seg = _serve_bags(torch, sparse, offs)
+        got, err = _check_bag(torch, bag_ops, bag_ref, table, flat, seg, b,
+                              None, "sum", f"batch {b}, one bag per sample")
+        worst = max(worst, err)
+        rows = emb.lookup(table, offs, torch.from_numpy(sparse).cuda())
+        torch.testing.assert_close(got, rows.sum(1), rtol=1e-5, atol=1e-5,
+                                   msg="bags != lookup(...).sum(1)")
+        del flat, seg, got, rows
+    n = 4096
+    ids = torch.randint(0, v, (n,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    one = bag_ops.embedding_bag(table, ids, torch.arange(
+        n, device="cuda", dtype=torch.int32), n)
+    assert torch.equal(one, torch.index_select(table, 0, ids)), \
+        "one row per bag != the row"
+    end = torch.arange(v - 410, v, device="cuda", dtype=torch.int32)
+    last = bag_ops.embedding_bag(table, end.flip(0), torch.arange(
+        410, device="cuda", dtype=torch.int32), 410)
+    assert torch.equal(last, table[v - 410:].flip(0)), "rows near the end"
+    _log(f"  embedding_bag: one unweighted row per bag is the row bit for "
+         f"bit ({n} random rows; rows {v - 410:,}..{v - 1:,}, byte offsets "
+         f"up to {(v - 1) * 64 * 4 / 1e9:.2f} GB)")
+    n, bags = 200_000, 60_000  # about 2,150 bags stay empty
+    ids = torch.randint(0, v, (n,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    seg = torch.randint(0, bags, (n,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    w = torch.randn(n, device="cuda", generator=gen)
+    near_end = torch.randint(v - 1000, v, (n,), device="cuda", generator=gen,
+                             dtype=torch.int32)
+    huge = torch.zeros(100_000, device="cuda", dtype=torch.int32)
+    for name, i, s, nb, ww, mode in (
+            ("unsorted duplicate segments, weights", ids, seg, bags, w, "sum"),
+            ("the same, mean", ids, seg, bags, w, "mean"),
+            ("the same, no weights", ids, seg, bags, None, "sum"),
+            ("rows near 187.7 M, weights", near_end, seg, bags, w, "sum"),
+            ("one huge bag and an empty one", ids[:100_000], huge, 2,
+             w[:100_000], "sum")):
+        _, err = _check_bag(torch, bag_ops, bag_ref, table, i, s, nb, ww,
+                            mode, name)
+        worst = max(worst, err)
+    half = table[:1_000_000].to(torch.bfloat16)
+    del table, one, last
+    torch.cuda.empty_cache()
+    small = torch.randint(0, half.shape[0], (n,), device="cuda",
+                          generator=gen, dtype=torch.int32)
+    _check_bag(torch, bag_ops, bag_ref, half, small, seg, bags, w, "sum",
+               "bf16 table, weights")
+    _check_bag(torch, bag_ops, bag_ref, half, small, seg, bags, None, "mean",
+               "bf16 table, mean")
+    del half
+    for name, e in (("deepfm table", 10), ("autoint table", 16)):
+        vocab = rbase.DEEPFM_VOCABS
+        t = emb.init_tables(gen, vocab, e, "cuda")["table"]
+        _, sparse, _ = pipeline.recsys_batch(cursor, SERVE_P99, vocab, 0)
+        flat, s = _serve_bags(torch, sparse, emb.field_offsets(vocab, "cuda"))
+        _, err = _check_bag(torch, bag_ops, bag_ref, t, flat, s, SERVE_P99,
+                            None, "sum", f"{name}, batch {SERVE_P99}")
+        worst = max(worst, err)
+        del t
+    for e in (7, 128, 200):  # scalar loads; 32 lanes; two column chunks
+        t = torch.randn(50_000, e, device="cuda", generator=gen)
+        i = torch.randint(0, 50_000, (20_000,), device="cuda", generator=gen)
+        s = torch.randint(0, 3_000, (20_000,), device="cuda", generator=gen)
+        _, err = _check_bag(torch, bag_ops, bag_ref, t, i, s, 3_000,
+                            w[:20_000].contiguous(), "sum", f"E={e}, weights")
+        worst = max(worst, err)
+    torch.cuda.empty_cache()
+    return worst
 
 
 def _attn_operands(torch, gen, b, hq, hkv, lq, lk, dh, dtype,
@@ -731,9 +902,11 @@ def _time_flash(torch, fa_ops, fa_ref, l, runs):
     return out
 
 
-def _profile(torch, fn, wall_ms, label):
+def _profile(torch, fn, wall_ms, label, mark="flash_fwd",
+             mark_name="flash kernel"):
     """Device time by kernel over one call of ``fn`` (torch.profiler),
-    against the call's CUDA-event wall time ``wall_ms``."""
+    against the call's CUDA-event wall time ``wall_ms``; the kernels
+    whose name holds ``mark`` are summed as ``mark_name``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -754,10 +927,10 @@ def _profile(torch, fn, wall_ms, label):
         _log(f"  profiler, {label}: no kernel time recorded (not measured)")
         return
     rows.sort(reverse=True)
-    flash_ms = sum(r[0] for r in rows if "flash_fwd" in r[2]) / 1e3
+    marked_ms = sum(r[0] for r in rows if mark in r[2]) / 1e3
     _log(f"  profiler, {label}: kernels {busy_ms:.3f} ms of {wall_ms:.3f} ms "
-         f"wall (device idle {1 - busy_ms / wall_ms:.1%}); flash kernel "
-         f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.1%} of kernel time)")
+         f"wall (device idle {1 - busy_ms / wall_ms:.1%}); {mark_name} "
+         f"{marked_ms:.3f} ms ({marked_ms / busy_ms:.1%} of kernel time)")
     for dev_us, count, key in rows[:6]:
         _log(f"    {dev_us / 1e3:9.3f} ms {dev_us / 1e3 / busy_ms:6.1%} "
              f"x{count:<4d} {key[:80]}")
@@ -1022,6 +1195,269 @@ def phase_ivf(torch, np, ops, tk_ops, ctx, tmp):
     return score_launches, topk_launches
 
 
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def _compact_on_cpu(torch, np, params, cfg, sparse):
+    """The rows a batch touches, as a compact CPU model: each field's
+    distinct ids become its whole vocabulary.  Returns (params, config,
+    remapped ids) for the same forward on the host."""
+    import dataclasses
+
+    offsets = np.concatenate([[0], np.cumsum(cfg.vocab_sizes[:-1])])
+    rows, counts = [], []
+    remapped = np.empty_like(sparse)
+    for f in range(sparse.shape[1]):
+        uniq, inv = np.unique(sparse[:, f], return_inverse=True)
+        remapped[:, f] = inv.reshape(-1)
+        counts.append(len(uniq))
+        rows.append(uniq.astype(np.int64) + offsets[f])
+    rows = torch.from_numpy(np.concatenate(rows)).cuda()
+    out = _to_cpu({k: v for k, v in params.items()
+                   if k not in ("table", "first_order")})
+    for k in ("table", "first_order"):
+        if k in params:
+            out[k] = params[k][rows].cpu()
+    return (out, dataclasses.replace(cfg, vocab_sizes=tuple(counts)),
+            remapped)
+
+
+def _recsys_serve(torch, np, arch, mod, params, cfg, steps, pipeline):
+    """(a) ``make_recsys_step(kind="recsys_serve")`` at serve_p99 and
+    serve_bulk: finite logits; the serve_p99 batch again on the CPU
+    through the rows it touches.  Returns {batch: device batch}."""
+    step = steps.make_recsys_step(arch, cfg, "recsys_serve")
+    cursor = pipeline.DataCursor(seed=0)
+    batches = {}
+    for b in (SERVE_P99, SERVE_BULK):
+        dense, sparse, _ = pipeline.recsys_batch(cursor, b, cfg.vocab_sizes,
+                                                 cfg.n_dense)
+        t0 = time.perf_counter()
+        logits = step(params, {"dense": dense, "sparse_idx": sparse})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        assert logits.shape == (b,) and logits.dtype == torch.float32, arch
+        assert torch.isfinite(logits).all(), arch
+        _log(f"  {arch} serve batch {b}: logits finite, mean "
+             f"{logits.mean().item():+.4f}, std {logits.std().item():.4f} "
+             f"(first call {first_s:.3f} s)")
+        batches[b] = {"dense": None if dense is None
+                      else torch.from_numpy(dense).cuda(),
+                      "sparse_idx": torch.from_numpy(sparse).cuda(),
+                      "sparse_np": sparse, "dense_np": dense,
+                      "logits": logits}
+    p99 = batches[SERVE_P99]
+    cpu_params, cpu_cfg, remapped = _compact_on_cpu(
+        torch, np, params, cfg, p99["sparse_np"])
+    want = mod.forward(cpu_params, None if p99["dense_np"] is None
+                       else torch.from_numpy(p99["dense_np"]),
+                       torch.from_numpy(remapped), cpu_cfg)
+    got = p99["logits"].cpu()
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert err <= RECSYS_TOL * scale, (arch, err, scale)
+    _log(f"  {arch} serve batch {SERVE_P99}: card logits == CPU logits of "
+         f"the same rows ({cpu_params['table'].shape[0]:,} distinct rows) "
+         f"within {RECSYS_TOL:g} × {scale:.3f}: max |Δ| {err:.3e}")
+    return batches
+
+
+def _recsys_timings(torch, arch, params, cfg, steps, batches):
+    """Forward ms per batch (CUDA events around the step, inputs already
+    on the card) and samples/s at both batches."""
+    step = steps.make_recsys_step(arch, cfg, "recsys_serve")
+    out = {}
+    for b, batch in batches.items():
+        inputs = {"dense": batch["dense"], "sparse_idx": batch["sparse_idx"]}
+        step(params, inputs)
+        torch.cuda.synchronize()
+        ms = _median_ms(torch, lambda: step(params, inputs),
+                        20 if b == SERVE_P99 else 5)
+        out[b] = ms
+        _log(f"  {arch} forward batch {b}: {ms:.4f} ms "
+             f"({b / ms * 1e3:,.0f} samples/s; CUDA events, median)")
+    return out
+
+
+def _time_bag(torch, F, bag_ops, bag_ref, table, flat, seg, b):
+    """embedding_bag at one served batch as bags: the kernel alone on its
+    prepared operands, the sort and offsets alone, the whole wrapper,
+    the plain version and ``F.embedding_bag`` on the sorted ids, as
+    device time of calls queued back to back; and the bound."""
+    idx, w, offsets = bag_ops.prepare(flat, seg, b)
+    offsets32 = offsets.to(torch.int32)
+    kernel = lambda: bag_ops.launch(table, idx, w, offsets)  # noqa: E731
+    prep = lambda: bag_ops.prepare(flat, seg, b)  # noqa: E731
+    wrapper = lambda: bag_ops.embedding_bag(table, flat, seg, b)  # noqa: E731
+    plain = lambda: bag_ref.embedding_bag_ref(table, flat, seg, b)  # noqa: E731
+    library = lambda: F.embedding_bag(  # noqa: E731
+        idx, table, offsets32, mode="sum", include_last_offset=True)
+    torch.testing.assert_close(library(), kernel(), rtol=1e-5, atol=1e-5)
+    for fn in (kernel, prep, wrapper, plain, library):
+        fn()
+    torch.cuda.synchronize()
+    reps = 50 if b == SERVE_P99 else 5
+    t = {"ms": _queued_ms(torch, kernel, reps, 10),
+         "prepare_ms": _queued_ms(torch, prep, reps, 10),
+         "wrapper_ms": _queued_ms(torch, wrapper, reps, 10),
+         "plain_ms": _queued_ms(torch, plain, reps, 5),
+         "library_ms": _queued_ms(torch, library, reps, 10)}
+    again = _queued_ms(torch, kernel, reps, 10)
+    n, e = flat.shape[0], table.shape[1]
+    distinct = torch.unique(flat).numel()
+    nbytes = distinct * e * 4 + n * 8 + b * e * 4  # rows, idx + seg, out
+    flops = 2 * n * e
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    t.update(bound_ms=max(bytes_ms, ops_ms),
+             bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    _log(f"  embedding_bag batch {b} (n={n:,}, {distinct:,} distinct rows): "
+         f"kernel {t['ms']:.4f} ms (again {again:.4f}), sort + offsets "
+         f"{t['prepare_ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms, plain "
+         f"{t['plain_ms']:.4f} ms, library F.embedding_bag "
+         f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+         f"({nbytes / 1e6:.1f} MB / 3.35 TB/s) by {t['bound_by']}; kernel at "
+         f"{t['bound_ms'] / t['ms']:.1%} of it, "
+         f"{nbytes / t['ms'] / 1e9:.2f} TB/s")
+    return t
+
+
+def phase_recsys(torch, np, bag_ops, bag_ref, tk_ops, tk_ref):
+    """(a) dlrm-rm2 FULL served at serve_p99 and serve_bulk, checked on
+    the CPU; (b) the EmbeddingBag path, ``lookup_bags(use_kernel=True)``
+    over the served table, counted; (c) retrieval of 1,000,000
+    candidates through the top-k kernel; (d) timings; then deepfm and
+    autoint FULL served, checked and timed.  Returns (bag launches,
+    bag timings at serve_bulk and at serve_p99)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import layers
+    from repro_torch.models.recsys import autoint, deepfm, dlrm
+    from repro_torch.models.recsys import embedding as emb
+
+    torch.cuda.empty_cache()
+    _log(f"  peak device memory over phases 1-7: "
+         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("dlrm-rm2").config
+    t0 = time.perf_counter()
+    params = dlrm.init(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    table = params["table"]
+    _log(f"  (a) dlrm-rm2 FULL init: table {tuple(table.shape)} f32 "
+         f"({table.numel() * 4 / 1e9:.2f} GB) and towers in "
+         f"{time.perf_counter() - t0:.2f} s; "
+         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    batches = _recsys_serve(torch, np, "dlrm-rm2", dlrm, params, cfg, steps,
+                            pipeline)
+
+    # (b) the kernel's path: counts zeroed just before, read just after
+    offs = emb.cached_offsets(cfg.vocab_sizes, table.device)
+    f = cfg.n_sparse
+    bag_inputs = {}
+    for b, batch in batches.items():
+        bag_inputs[b] = (batch["sparse_idx"].reshape(-1),
+                         torch.arange(f, device="cuda").repeat(b),
+                         torch.arange(b, device="cuda").repeat_interleave(f))
+    bag_ops.reset_counts()
+    bags = {b: emb.lookup_bags(table, offs, idx, field, bag, b,
+                               use_kernel=True)
+            for b, (idx, field, bag) in bag_inputs.items()}
+    torch.cuda.synchronize()
+    bag_launches, bag_plain = bag_ops.counts["launches"], bag_ops.counts["plain"]
+    assert (bag_launches, bag_plain) == (len(bags), 0), bag_ops.counts
+    for b, got in bags.items():
+        want = emb.lookup(table, offs, batches[b]["sparse_idx"]).sum(1)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                   msg=f"lookup_bags at {b}")
+        _log(f"  (b) lookup_bags(use_kernel=True) batch {b}: == "
+             f"lookup(...).sum(1) within 1e-5 (max |Δ| "
+             f"{(got - want).abs().max().item():.3e})")
+    _log(f"  (b) embedding_bag launches {bag_launches} = lookup_bags calls "
+         f"{len(bags)}, plain calls {bag_plain}")
+    del bags
+
+    # (c) retrieval: 1,000,000 candidates padded to 1,000,448 (-inf)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cand = torch.zeros(RETRIEVAL_PAD, device="cuda", dtype=torch.int32)
+    cand[:RETRIEVAL_N] = torch.randint(0, cfg.vocab_sizes[0], (RETRIEVAL_N,),
+                                       device="cuda", generator=gen,
+                                       dtype=torch.int32)
+    query = torch.randn(1, cfg.n_dense, device="cuda", generator=gen)
+    rbatch = {"query": query, "candidate_ids": cand,
+              "n_real_candidates": RETRIEVAL_N}
+    retrieve = steps.make_recsys_step("dlrm-rm2", cfg, "recsys_retrieval")
+    tk_ops.reset_counts()
+    vals, ids = retrieve(params, rbatch)
+    torch.cuda.synchronize()
+    topk_launches = tk_ops.counts["launches"]
+    assert topk_launches == 1, tk_ops.counts
+    scores = dlrm.retrieval_scores(params, query, cand, cfg)
+    pos = torch.arange(RETRIEVAL_PAD, device="cuda")
+    scores = scores.masked_fill(pos >= RETRIEVAL_N, float("-inf"))
+    pv, pi = tk_ref.top_k_ref(scores, 16)
+    assert torch.equal(ids, pi) and torch.equal(vals, pv), \
+        (ids.tolist(), pi.tolist())
+    assert (ids < RETRIEVAL_N).all(), ids.tolist()
+    q_cpu = layers.dense_mlp_apply(_to_cpu(params["bot"]), query.cpu(),
+                                        len(cfg.bot_mlp), True)[0]
+    want = table[cand[ids.long()].long()].cpu() @ q_cpu
+    err = (vals.cpu() - want).abs().max().item()
+    assert err <= RECSYS_TOL * max(1.0, want.abs().max().item()), err
+    retrieval_ms = _median_ms(torch, lambda: retrieve(params, rbatch), 10)
+    _log(f"  (c) retrieval of {RETRIEVAL_N:,} candidates (padded to "
+         f"{RETRIEVAL_PAD:,}, padding at -inf): top_k launches "
+         f"{topk_launches}; ids and values equal the plain top-k's; the top "
+         f"16 scores equal the CPU's within {RECSYS_TOL:g} (max |Δ| "
+         f"{err:.3e}); step {retrieval_ms:.4f} ms (CUDA events, median)")
+
+    # (d) timings
+    bag_timing = {b: _time_bag(torch, F, bag_ops, bag_ref, table,
+                               *_serve_bags(torch, batches[b]["sparse_np"],
+                                            offs), b)
+                  for b in (SERVE_P99, SERVE_BULK)}
+    forward_ms = {"dlrm-rm2": _recsys_timings(torch, "dlrm-rm2", params, cfg,
+                                              steps, batches)}
+    step = steps.make_recsys_step("dlrm-rm2", cfg, "recsys_serve")
+    for b in (SERVE_P99, SERVE_BULK):
+        inputs = {"dense": batches[b]["dense"],
+                  "sparse_idx": batches[b]["sparse_idx"]}
+        _profile(torch, lambda: step(params, inputs),
+                 forward_ms["dlrm-rm2"][b],
+                 f"one dlrm-rm2 serve step at batch {b}", "gather",
+                 "row gathers (index_select)")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, table, batches, bag_inputs, scores, cand
+    torch.cuda.empty_cache()
+
+    for arch, mod in (("deepfm", deepfm), ("autoint", autoint)):
+        cfg = get_arch(arch).config
+        t0 = time.perf_counter()
+        params = mod.init(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+        torch.cuda.synchronize()
+        _log(f"  (a) {arch} FULL init: table "
+             f"{tuple(params['table'].shape)} f32 "
+             f"({params['table'].numel() * 4 / 1e9:.2f} GB) in "
+             f"{time.perf_counter() - t0:.2f} s")
+        batches = _recsys_serve(torch, np, arch, mod, params, cfg, steps,
+                                pipeline)
+        forward_ms[arch] = _recsys_timings(torch, arch, params, cfg, steps,
+                                           batches)
+        del params, batches
+        torch.cuda.empty_cache()
+    _log(f"  peak device memory in phase 8: {peak:.2f} GB "
+         "(torch.cuda.max_memory_allocated)")
+    return bag_launches, bag_timing, forward_ms
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1044,10 +1480,15 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.embedding_bag import ref as bag_ref
     from repro_torch.kernels.hsf_score import ops, ref
     from repro_torch.kernels.topk import ops as tk_ops
     from repro_torch.kernels.topk import ref as tk_ref
     from repro_torch.models import transformer as T
+    from repro_torch.models.recsys import base as rbase
+    from repro_torch.models.recsys import embedding as emb
 
     t_start = time.perf_counter()
     card = subprocess.run(
@@ -1063,16 +1504,21 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build.build_all()
     _log(f"  built {sorted(reports)} in {time.perf_counter() - t0:.1f} s")
-    for name, report in reports.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                _log(f"  {name}: {line.strip()}")
+    for name, report in sorted(reports.items()):
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+        spill = sum(int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", report))
+        _log(f"  {name}: {len(regs)} kernel instantiations, "
+             f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
+             f"{spill} bytes of spills")
 
     _log("phase 2: kernels against their plain versions on the card")
     max_err = phase_kernel(torch, np, ops, ref)
     fa_max_err = phase_flash_kernel(torch, fa_ops, fa_ref)
     score_max_err = phase_hsf_score_kernel(torch, np, ops, ref)
     topk_max_err = phase_topk_kernel(torch, np, tk_ops, tk_ref)
+    bag_max_err = phase_bag_kernel(torch, bag_ops, bag_ref, emb, rbase,
+                                   pipeline)
 
     with tempfile.TemporaryDirectory() as tmp:
         _log("phase 3: main path (ingest, serve + generate, reload, serve + "
@@ -1097,7 +1543,13 @@ def main() -> int:
         _log("phase 7: the IVF index plane at 65,536 docs")
         score_launches, topk_launches = phase_ivf(torch, np, ops, tk_ops,
                                                   ctx, tmp)
+        del ctx
+    _log("phase 8: the recsys plane at full width (dlrm-rm2, deepfm, "
+         "autoint)")
+    bag_launches, bag_timing, _ = phase_recsys(torch, np, bag_ops, bag_ref,
+                                               tk_ops, tk_ref)
     _log(f"total {time.perf_counter() - t_start:.1f} s")
+    _log(f"card: {card}")  # again, near the end, for readers of the tail
 
     print(json.dumps({"kernels": [{
         "name": "hsf_score_topk",
@@ -1131,6 +1583,15 @@ def main() -> int:
         "launches": topk_launches,
         "max_abs_err": topk_max_err,
         **new_timing[(N_DOCS, TOP_K)],
+    }, {
+        "name": "embedding_bag",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:44",
+        "launches": bag_launches,
+        "max_abs_err": bag_max_err,
+        **{k: bag_timing[SERVE_BULK][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Lists every architecture the JAX package's registry lists.  Only
-``llama3.2-3b`` is ported; ``get`` raises ``NotImplementedError`` for
-the others, naming the ROADMAP item that brings them.
+Lists every architecture the JAX package's registry lists.  Ported:
+``llama3.2-3b`` and the four recsys archs (``dlrm-rm2``, ``dlrm-mlperf``,
+``deepfm``, ``autoint``); ``get`` raises ``NotImplementedError`` for the
+others, naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ class ArchSpec:
 
 
 _LM_LATER = "ROADMAP Queue 1 item 10 (training and generation substrate)"
-_RECSYS_GNN = "ROADMAP Queue 1 item 11 (recsys and GNN)"
+_GNN = "ROADMAP Queue 1 item 11 (GNN: models/gnn/{mace,sampler}.py)"
 
 ARCHS: dict[str, ArchSpec] = {
     "gemma3-27b": ArchSpec("gemma3-27b", "lm", None, _LM_LATER),
@@ -38,11 +39,13 @@ ARCHS: dict[str, ArchSpec] = {
                                   _LM_LATER),
     "deepseek-v2-lite-16b": ArchSpec("deepseek-v2-lite-16b", "lm", None,
                                      _LM_LATER),
-    "mace": ArchSpec("mace", "gnn", None, _RECSYS_GNN),
-    "dlrm-rm2": ArchSpec("dlrm-rm2", "recsys", None, _RECSYS_GNN),
-    "deepfm": ArchSpec("deepfm", "recsys", None, _RECSYS_GNN),
-    "dlrm-mlperf": ArchSpec("dlrm-mlperf", "recsys", None, _RECSYS_GNN),
-    "autoint": ArchSpec("autoint", "recsys", None, _RECSYS_GNN),
+    "mace": ArchSpec("mace", "gnn", None, _GNN),
+    "dlrm-rm2": ArchSpec("dlrm-rm2", "recsys",
+                         "repro_torch.configs.dlrm_rm2"),
+    "deepfm": ArchSpec("deepfm", "recsys", "repro_torch.configs.deepfm"),
+    "dlrm-mlperf": ArchSpec("dlrm-mlperf", "recsys",
+                            "repro_torch.configs.dlrm_mlperf"),
+    "autoint": ArchSpec("autoint", "recsys", "repro_torch.configs.autoint"),
     "ragdb": ArchSpec("ragdb", "ragdb", None, _LM_LATER),
 }
 

@@ -1,1 +1,2 @@
-"""Synthetic corpora (``corpus.py``)."""
+"""Synthetic data: corpora (``corpus.py``) and the training and serving
+batches of the model families (``pipeline.py``)."""

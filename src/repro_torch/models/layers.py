@@ -2,8 +2,7 @@
 
 Weights are plain tensors: matrices in the compute dtype, norm weights
 in float32.  ``rms_norm`` and RoPE compute in float32 and cast back, as
-the reference does.  The recsys helpers (``dense_mlp_*``) come with the
-recsys slice of the port.
+the reference does.  ``dense_mlp_*`` are the recsys towers.
 """
 from __future__ import annotations
 
@@ -94,3 +93,28 @@ def mlp_apply(params, x: torch.Tensor, activation: str = "silu"):
     act = (F.gelu(gate, approximate="tanh") if activation == "gelu"
            else F.silu(gate))
     return (act * up) @ params["w_down"]
+
+
+# --------------------------------------------------------------------------
+# plain MLP (recsys towers)
+# --------------------------------------------------------------------------
+
+def dense_mlp_init(gen: torch.Generator, dims: tuple[int, ...],
+                   device=None) -> dict:
+    """dims = (in, h1, ..., out): ``w{i}`` [dims[i], dims[i+1]] drawn as
+    ``dense_init``, ``b{i}`` zeros, as the reference's tree."""
+    n = len(dims) - 1
+    out = {f"w{i}": dense_init(gen, dims[i], dims[i + 1], device=device)
+           for i in range(n)}
+    out.update({f"b{i}": torch.zeros((dims[i + 1],), dtype=torch.float32,
+                                     device=device) for i in range(n)})
+    return out
+
+
+def dense_mlp_apply(params: dict, x: torch.Tensor, n_layers: int,
+                    final_activation: bool = False) -> torch.Tensor:
+    for i in range(n_layers):
+        x = x @ params[f"w{i}"].to(x.dtype) + params[f"b{i}"].to(x.dtype)
+        if i + 1 < n_layers or final_activation:
+            x = torch.relu(x)
+    return x

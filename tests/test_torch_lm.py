@@ -230,8 +230,11 @@ def test_registry_resolves_llama_and_names_the_roadmap_for_the_rest():
         assert got == port_config(want)
     assert configs.get("llama3.2-3b").config.compute_dtype == torch.bfloat16
     assert set(configs.ARCHS) == set(ref_configs.ARCHS)
+    ported = {"llama3.2-3b", "dlrm-rm2", "dlrm-mlperf", "deepfm", "autoint"}
     for arch in configs.ARCHS:
-        if arch != "llama3.2-3b":
+        if arch in ported:
+            assert configs.get(arch).module.startswith("repro_torch.")
+        else:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 configs.get(arch)
     with pytest.raises(KeyError):
