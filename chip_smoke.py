@@ -7,16 +7,21 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Card: name and power limit (``nvidia-smi``); build every CUDA kernel
    of the port from ``src/repro_torch/csrc/`` (one ``nvcc`` per source,
-   all at once).
+   all at once), with each library's registers and spills, and per kernel
+   instantiation whether its SASS holds HGMMA (wgmma), UTMALDG (TMA) and
+   HMMA (mma.sync); the wgmma designs must hold the first two.
 2. Kernels against their plain versions, on the card: the fused HSF
    top-k at the serving shape (N=65,536 docs, D=4,096, W=128 signature
    words, B=64 queries, k=16) and at its edges (ragged N, n_valid < N,
-   k=128, k > n_valid, B=1, duplicated doc rows); then flash attention
-   at the serving shape (B=1, Hq=24, Hkv=8, L=512, Dh=128, bf16, causal,
-   strided operands as the projections give them) and at its edges
-   (ragged L, GQA 8:1 at Dh=32 in f32, window + softcap at Dh=256,
-   non-causal, q_offset with Lq < Lk, kv_len < Lk, fully masked rows,
-   the SMOKE heads of 16 in bf16 and f32, Dh=256 in f32); then the
+   k=128, k > n_valid, B=1, duplicated doc rows, ragged D=1,000, D=2 and
+   W=3 without 16-byte rows, B=100), and 16 queries at B=1 giving the
+   bits they get inside B=64; then flash attention at the serving shape
+   (B=1, Hq=24, Hkv=8, L=512, Dh=128, bf16, causal, strided operands as
+   the projections give them) and at its edges (ragged L, GQA 8:1 at
+   Dh=32 in f32, window + softcap at Dh=256, non-causal, q_offset with
+   Lq < Lk, kv_len < Lk, fully masked rows, the SMOKE heads of 16 in
+   bf16 and f32, Dh=256 in f32, Lq=700 and Lq=1, GQA 3:1 at Dh=64,
+   kv_len ending mid-tile in an Lk of 611); then the
    single-query HSF score at the serving shape in f32 and bf16 and at
    its edges (ragged N, D without 16-byte rows, W=3, n = 0, the boost
    exactly β); then the streaming top-k at N=65,536 and 16,777,216 with
@@ -40,7 +45,8 @@ Phases (any failure raises and the script exits non-zero):
    the CPU.
 4. Timings of the HSF kernels and the top-k at their serving shapes
    (top-k also at 16,777,216 scores): kernel, plain version, the
-   library yardstick, and the bound.
+   library yardstick, and the bound, as device time of calls queued
+   back to back.
 5. Full-width cross-check: last-position prefill logits of llama3.2-3b
    (the served weights) for four prompts through the flash kernel and
    through the plain blockwise path.
@@ -103,6 +109,7 @@ SCORE_ATOL = 1e-5
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12
 
 # generation leg: configs/llama3_2_3b.py FULL (28 layers; attention
@@ -121,6 +128,88 @@ LOGIT_REL_TOL = 2e-2
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: what the compiler made of the kernels
+# ---------------------------------------------------------------------------
+
+# instantiation -> SASS instructions it must hold: the Hopper designs'
+# warpgroup products (HGMMA) and TMA loads (UTMALDG)
+_SASS_REQUIRED = {
+    "flash_fwd_wgmma<64>": ("HGMMA", "UTMALDG"),
+    "flash_fwd_wgmma<128>": ("HGMMA", "UTMALDG"),
+    "hsf_topk_tiles": ("HGMMA", "UTMALDG"),
+}
+
+
+def _kernel_label(mangled: str) -> str:
+    """``flash_fwd_wgmma<128>`` from an anonymous-namespace mangled name
+    (template arguments: integers, names and builtin types)."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled
+    start = m.end()
+    name = mangled[start:start + int(m.group(1))]
+    rest = mangled[start + int(m.group(1)):]
+    if not rest.startswith("I"):
+        return name
+    args, i = [], 1  # template arguments: literals, names, builtin types
+    builtin = {"f": "float", "i": "int", "b": "bool", "j": "unsigned"}
+    while i < len(rest) and rest[i] != "E":
+        if rest[i] == "L":
+            end = rest.find("E", i)
+            if end < 0:
+                return name
+            args.append(re.sub(r"^[a-z]+", "", rest[i + 1:end]))
+            i = end + 1
+        elif rest[i].isdigit():
+            n = re.match(r"\d+", rest[i:]).group()
+            start = i + len(n)
+            args.append(rest[start:start + int(n)])
+            i = start + int(n)
+        else:
+            args.append(builtin.get(rest[i], rest[i]))
+            i += 1
+    return f"{name}<{', '.join(args)}>"
+
+
+def _sass_report(build, reports):
+    """Per kernel instantiation, its registers (from the ptxas report)
+    and whether its SASS (``cuobjdump -sass``) holds warpgroup products
+    (HGMMA), TMA loads (UTMALDG) and mma.sync products (HMMA); raises if a
+    Hopper design lacks what it must hold."""
+    import shutil
+
+    regs = {}
+    for report in reports.values():
+        for fn, used in re.findall(
+                r"Compiling entry function '(\S+)'.*?Used (\d+) registers",
+                report, re.S):
+            regs[fn] = used
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        _log("  SASS: cuobjdump not found in this toolkit; instructions "
+             "not checked")
+        return
+    seen = set()
+    for name in sorted(p.stem for p in build.CSRC.glob("*.cu")):
+        out = subprocess.run([tool, "-sass", str(build._target(name))],
+                             capture_output=True, text=True,
+                             check=True).stdout
+        for body in re.split(r"\n\s*Function : ", out)[1:]:
+            mangled = body.split("\n", 1)[0].strip()
+            label = _kernel_label(mangled)
+            has = {op: op in body for op in ("HGMMA", "UTMALDG", "HMMA")}
+            _log(f"  SASS {name}: {label:28s} {regs.get(mangled, '?'):>3s} "
+                 "registers, " + " ".join(
+                     f"{op} {'yes' if v else 'no'}" for op, v in has.items()))
+            for op in _SASS_REQUIRED.get(label, ()):
+                assert has[op], f"{label} holds no {op}"
+            seen.add(label)
+    missing = set(_SASS_REQUIRED) - seen
+    assert not missing, f"no SASS found for {sorted(missing)}"
 
 
 # ---------------------------------------------------------------------------
@@ -178,25 +267,33 @@ def _check_against_plain(np, kv, ki, pv, pi, sentinel, label):
 def phase_kernel(torch, np, ops, ref):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [
-        # name, n, b, k, n_valid, dup_rows
-        ("serving shape", N_DOCS, BATCH, TOP_K, None, 0),
-        ("ragged N", 20_011, BATCH, TOP_K, None, 0),
-        ("n_valid < N", 20_011, BATCH, TOP_K, 12_345, 0),
-        ("k = 128", 20_011, BATCH, 128, None, 0),
-        ("k > n_valid (sentinels)", 20_011, BATCH, TOP_K, 7, 0),
-        ("B = 1", N_DOCS, 1, TOP_K, None, 0),
-        ("duplicated doc rows", 20_011, BATCH, TOP_K, None, 97),
+        # name, n, b, k, n_valid, dup_rows, d, w
+        ("serving shape", N_DOCS, BATCH, TOP_K, None, 0, DIM, SIG_WORDS),
+        ("ragged N", 20_011, BATCH, TOP_K, None, 0, DIM, SIG_WORDS),
+        ("n_valid < N", 20_011, BATCH, TOP_K, 12_345, 0, DIM, SIG_WORDS),
+        ("k = 128", 20_011, BATCH, 128, None, 0, DIM, SIG_WORDS),
+        ("k > n_valid (sentinels)", 20_011, BATCH, TOP_K, 7, 0, DIM,
+         SIG_WORDS),
+        ("B = 1", N_DOCS, 1, TOP_K, None, 0, DIM, SIG_WORDS),
+        ("duplicated doc rows", 20_011, BATCH, TOP_K, None, 97, DIM,
+         SIG_WORDS),
+        # a ragged feature chunk; rows of 8 bytes and signatures of 12
+        # (no 16-byte copies); B past one query group
+        ("ragged D=1000", 20_011, BATCH, TOP_K, None, 0, 1_000, SIG_WORDS),
+        ("D=2 W=3 (4-byte copies)", 20_011, BATCH, TOP_K, None, 0, 2, 3),
+        ("B=100 (two query groups)", 5_000, 100, TOP_K, None, 0, DIM,
+         SIG_WORDS),
     ]
     worst = 0.0
-    for name, n, b, k, n_valid, dup in cases:
-        dv, ds, qv, qs = _make_operands(torch, gen, n, DIM, SIG_WORDS, b,
-                                        dup_rows=dup)
+    for name, n, b, k, n_valid, dup, d, w in cases:
+        dv, ds, qv, qs = _make_operands(torch, gen, n, d, w, b, dup_rows=dup)
         kv, ki = ops.hsf_score_batched(dv, ds, qv, qs, k=k, alpha=ALPHA,
                                        beta=BETA, n_valid=n_valid)
         torch.cuda.synchronize()
         # plain list long enough to hold every near-tie of the top k
-        # (all copies of a row in the duplicated case)
-        extra = n if dup else min(n, k + 32)
+        # (all copies of a row in the duplicated case; at D = 2 unit rows
+        # crowd within SCORE_ATOL of each other)
+        extra = n if dup or d < 8 else min(n, k + 32)
         pv, pi = ref.hsf_score_topk_ref(dv, ds, qv, qs, ALPHA, BETA, extra,
                                         n_valid=n_valid)
         kv, ki = kv.cpu().numpy(), ki.cpu().numpy()
@@ -214,9 +311,22 @@ def phase_kernel(torch, np, ops, ref):
         if n_valid is not None and n_valid < k:
             assert np.all(ki[:, n_valid:] == ops.ID_SENTINEL), name
         worst = max(worst, err)
-        _log(f"  kernel == plain: {name:26s} N={n} B={b} k={k} "
+        _log(f"  kernel == plain: {name:26s} N={n} D={d} W={w} B={b} k={k} "
              f"n_valid={n_valid} max |Δscore| {err:.3e}")
         del dv, ds, qv, qs
+    # a (query, doc) score depends on those two rows alone: 16 queries
+    # scored one at a time give the bits they get inside a batch of 64
+    dv, ds, qv, qs = _make_operands(torch, gen, N_DOCS, DIM, SIG_WORDS, BATCH)
+    kv, ki = ops.hsf_score_batched(dv, ds, qv, qs, k=TOP_K, alpha=ALPHA,
+                                   beta=BETA)
+    for row in range(0, BATCH, BATCH // 16):
+        v1, i1 = ops.hsf_score_batched(
+            dv, ds, qv[row:row + 1].contiguous(),
+            qs[row:row + 1].contiguous(), k=TOP_K, alpha=ALPHA, beta=BETA)
+        assert torch.equal(i1[0], ki[row]) and torch.equal(v1[0], kv[row]), \
+            ("B = 1 vs B = 64", row)
+    _log("  kernel: 16 queries scored at B = 1 give the ids and score bits "
+         "they get inside B = 64")
     return worst
 
 
@@ -517,6 +627,18 @@ def phase_flash_kernel(torch, fa_ops, fa_ref):
         ("Dh=16 window 16 softcap 30 f32", (2, 4, 2, 77, 77, 16), f32, True,
          {"window": 16, "softcap": 30.0}),
         ("Dh=256 f32", (1, 4, 2, 150, 150, 256), f32, True, {}),
+        # the wgmma design's edges: a ragged last query tile and a single
+        # row; GQA 3:1 at Dh=64; kv_len ending mid-tile in an Lk whose
+        # rows end mid-tile too
+        ("Lq=700 (ragged query tile)", (1, 24, 8, 700, 700, 128), bf16,
+         True, {}),
+        ("Lq=1 q_offset=610 Lk=611", (1, 24, 8, 1, 611, 128), bf16, True,
+         {"q_offset": 610}),
+        ("GQA 24:8 Dh=64", (2, 24, 8, 300, 300, 64), bf16, True, {}),
+        ("kv_len=555 < Lk=611 Dh=128", (1, 8, 4, 100, 611, 128), bf16,
+         False, {"q_offset": 511, "kv_len": 555}),
+        ("kv_len=37 < Lk=611 Dh=64 window 20", (1, 6, 2, 90, 611, 64),
+         bf16, True, {"kv_len": 37, "window": 20}),
     ]
     worst = 0.0
     for name, (b, hq, hkv, lq, lk, dh), dtype, strided, opts in cases:
@@ -715,23 +837,29 @@ def phase_timings(torch, ops, ref):
     for fn in (kernel, plain, library):  # warm up
         fn()
     torch.cuda.synchronize()
-    kernel_ms = _median_ms(torch, kernel, 30)
-    plain_ms = _median_ms(torch, plain, 10)
-    library_ms = _median_ms(torch, library, 30)
-    kernel_ms_2 = _median_ms(torch, kernel, 30)
+    kernel_ms = _queued_ms(torch, kernel, 10, 10)
+    plain_ms = _queued_ms(torch, plain, 1, 5)
+    library_ms = _queued_ms(torch, library, 10, 10)
+    kernel_ms_2 = _queued_ms(torch, kernel, 10, 10)
     n, d = dv.shape
     w = ds.shape[1]
     nbytes = 4 * (n * d + n * w + BATCH * d + BATCH * w) + 8 * BATCH * TOP_K
     flops = 2 * BATCH * n * d
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    # the kernel's products: three TF32 products per f32 product
+    ops_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    simt_ms = flops / F32_FLOPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     _log(f"  kernel {kernel_ms:.4f} ms (again {kernel_ms_2:.4f} ms), plain "
          f"{plain_ms:.4f} ms, library torch.topk(α·q@docsᵀ+β·ind) "
-         f"{library_ms:.4f} ms (containment precomputed)")
+         f"{library_ms:.4f} ms (containment precomputed); device time of "
+         "calls queued back to back")
     _log(f"  bound {bound_ms:.4f} ms = max({nbytes / 1e9:.3f} GB / 3.35 TB/s "
-         f"= {bytes_ms:.4f} ms, {flops / 1e9:.1f} GFLOP / 67 TFLOP/s = "
-         f"{ops_ms:.4f} ms); kernel at {bound_ms / kernel_ms:.1%} of it")
+         f"= {bytes_ms:.4f} ms, 3 × {flops / 1e9:.1f} GFLOP of 3×TF32 / "
+         f"495 TFLOP/s = {ops_ms:.4f} ms); kernel at "
+         f"{bound_ms / kernel_ms:.1%} of it (against the f32 SIMT bound of "
+         f"the earlier design, {flops / 1e9:.1f} GFLOP / 67 TFLOP/s = "
+         f"{simt_ms:.4f} ms: {simt_ms / kernel_ms:.1%})")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -1511,6 +1639,7 @@ def main() -> int:
         _log(f"  {name}: {len(regs)} kernel instantiations, "
              f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
              f"{spill} bytes of spills")
+    _sass_report(build, reports)
 
     _log("phase 2: kernels against their plain versions on the card")
     max_err = phase_kernel(torch, np, ops, ref)

@@ -21,30 +21,43 @@
 // What bounds it.  At the serving shape (B = 1, Hq = 24, Hkv = 8,
 // L = 512, Dh = 128, bf16, causal) the call moves 8.4 MB (2.5 us at
 // 3.35 TB/s) and does 1.6 GFLOP (1.6 us at 989 TFLOP/s): it is bound by
-// bytes, and in practice by launch latency.  At L = 8,192 it does
-// 412 GFLOP (0.42 ms) against 134 MB (0.04 ms): bound by operations, so
-// the products go to the tensor cores.
+// bytes, and in practice by latency (each CTA walks up to 8 key tiles in
+// turn).  At L = 8,192 it does 412 GFLOP (0.42 ms) against 134 MB
+// (0.04 ms): bound by operations, so the products go to the tensor cores.
 //
-// Design (simple first; wgmma, TMA and warp specialisation come later).
-// One CTA of 4 warps owns (b, h, a tile of query rows) and walks the key
-// tiles of its kv head in order, keeping the carry in registers:
+// Which design serves which call is fixed by (dtype, Dh), never by a
+// fallback at run time:
 //
-// bf16 (`flash_fwd_bf16`): 64 query rows, 16 per warp; key tiles of 64
-//   (32 at Dh = 256) in shared memory (rows padded by 16 bytes against
-//   bank conflicts), two tiles in flight: `cp.async` fetches the next
-//   K/V tile while the tensor cores work on this one.  S = q.k^T and
-//   O += P.V run on `mma.sync.m16n8k16` (bf16 in, f32 accumulate) with
-//   operands fetched by `ldmatrix` (`.trans` for V); Q's fragments stay
-//   in registers (up to Dh = 128).  S stays in registers, and its
-//   accumulator layout is the A-operand layout of the P.V product, so P
-//   never touches shared memory.  P is rounded to bf16 for P.V (as the
-//   JAX package's XLA path does, attention.py:111); the row sum uses the
-//   unrounded f32 p.  Tiles wholly inside the mask skip the per-element
-//   test.  The tiles need more than the default 48 KB of shared memory
-//   from Dh = 128 on, granted per launch.
+// bf16, Dh = 64 and 128 (`flash_fwd_wgmma`): one warpgroup per CTA owns
+//   64 query rows of one head (a 512-token prefill: 8 x 24 = 192 CTAs, at
+//   two per SM all resident on the 132 SMs).  Thread 0 loads Q, K and V
+//   by TMA (4-D maps over the operands' real strides, 128-byte swizzle,
+//   64-column boxes; K/V rows past kv_len arrive as zeros) into two K and
+//   two V slots, signalled on mbarriers, one tile ahead.  S = q.k^T is
+//   `wgmma` m64n64k16 with both operands in shared memory; O += P.V is
+//   `wgmma` m64nDhk16 with P from registers (S's accumulator packed to
+//   bf16 pairs is the A fragment) and V read MN-major from its [keys][Dh]
+//   tile, never transposed.  S_j is issued, then P_{j-1}.V_{j-1} behind
+//   it, so the tensor cores run P.V while the warpgroup does tile j's
+//   softmax; O is rescaled once P.V has landed, and only in warps whose
+//   row max moved.  The softmax is in base 2: scale * log2 e is folded
+//   into the logit, `ex2.approx`; on tiles wholly inside the mask the
+//   max is taken over the raw dots and the scale rides in one FMA per
+//   exponent.  Not warp-specialised (one warpgroup issues its own TMA);
+//   two CTAs per SM overlap one's softmax with the other's products.
+// bf16, Dh = 16, 32 and 256 (`flash_fwd_bf16`): 64 query rows, 16 per
+//   warp; key tiles of 64 (32 at Dh = 256) in shared memory (rows padded
+//   by 16 bytes against bank conflicts), two tiles in flight by
+//   `cp.async`; S = q.k^T and O += P.V on `mma.sync.m16n8k16` with
+//   operands fetched by `ldmatrix` (`.trans` for V); S stays in
+//   registers as the A operand of P.V.
 // f32 (`flash_fwd_f32`): 32 query rows, 4 threads per row, key tiles of
 //   32, products in f32 FMAs on the CUDA cores (no TF32), P staged in
 //   shared memory for P.V.
+//
+// Every design rounds P to bf16 for P.V in bf16 (as the JAX package's
+// XLA path does, attention.py:111) and sums the row in f32 from the
+// unrounded p; tiles wholly inside the mask skip the per-element test.
 //
 // The TPU kernel carried (m, l, acc) in VMEM across the sequential
 // key-block grid axis; on Hopper CTAs run in any order, so that axis is
@@ -52,8 +65,9 @@
 // longest causal rows start first.
 //
 // Operands are read through their (batch, head, row) strides with unit
-// stride inside a row, so the transposed [B, L, H, Dh] projections need no
-// copy; the output is contiguous [B, Hq, Lq, Dh].  The ragged edges (rows
+// stride inside a row (by TMA maps or pointers), so the transposed
+// [B, L, H, Dh] projections need no copy; the output is contiguous
+// [B, Hq, Lq, Dh].  The ragged edges (rows
 // past Lq, keys past min(kv_len, Lk)) are masked here, so the wrapper pads
 // nothing.
 //
@@ -61,12 +75,17 @@
 // Nothing is allocated here.  Each launch is followed by
 // cudaGetLastError(), whose code is returned.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 128;
 constexpr float kMaskValue = -1e30f;
@@ -82,6 +101,10 @@ struct Params {
   int hq, group, lq, lk_eff, q_offset;
   int causal, has_window, window, has_softcap;
   float scale, softcap;
+  // base 2 (wgmma kernel): scale * log2 e, softcap * log2 e, scale / softcap
+  float scale_log2, softcap_log2, scale_over_cap;
+  // slot (1 or 2) of the row coordinate in each TMA map (wgmma kernel)
+  int q_row_slot, k_row_slot, v_row_slot;
 };
 
 // The TPU kernel's block-level relevance test for key tile [k0, k0+bk)
@@ -107,6 +130,13 @@ __device__ __forceinline__ float logit(const Params& p, float dot) {
   return x;
 }
 
+// The same logit times log2 e, for exp2f: the softmax is unchanged, as
+// exp(x - m) = 2^(x log2 e - m log2 e).
+__device__ __forceinline__ float logit2(const Params& p, float dot) {
+  if (p.has_softcap) return p.softcap_log2 * tanhf(dot * p.scale_over_cap);
+  return dot * p.scale_log2;
+}
+
 // ---------------------------------------------------------------------------
 // bf16: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
@@ -126,10 +156,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
 // Four 8x8 b16 matrices from shared memory: lanes 8j .. 8j+7 give the
 // row addresses of matrix j, and register j receives matrix j in the mma
 // fragment layout (row lane / 4, columns 2 * (lane % 4) and +1); `.trans`
@@ -138,7 +164,7 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* ptr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(ptr)));
+      : "r"(smem_u32(ptr)));
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
@@ -147,26 +173,7 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(ptr)));
-}
-
-// 16 bytes from device to shared memory without a register round trip;
-// the destination is zero-filled when !valid (nothing is read then).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of this thread's committed copy groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+      : "r"(smem_u32(ptr)));
 }
 
 // Start copying rows [row0, row0 + ROWS) of a [*, D] bf16 operand (row
@@ -397,6 +404,263 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16, Dh = 64 and 128: wgmma, with Q, K and V loaded by TMA
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct WgTile {
+  static constexpr int kBQ = 64, kBK = 64;  // query rows, keys per tile
+  static constexpr int kBoxes = D / 64;     // 64-column TMA boxes per row
+  static constexpr int kBoxBytes = 64 * 128;  // one [64 rows][64 cols] box
+  static constexpr int kOpBytes = kBoxes * kBoxBytes;  // Q, or K or V of a tile
+  // 1 KB of slack to align the tiles to 1024 bytes (the swizzle atom);
+  // Q, two K slots, two V slots; barriers [0] Q, [1 + s] K slot s,
+  // [3 + s] V slot s
+  static constexpr size_t kSmem = 1024 + 5 * (size_t)kOpBytes + 8 * 5;
+};
+
+// A box of `map` whose rows sit at coordinate slot `row_slot` (1 or 2)
+// and heads at the other (see make_map).
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        uint64_t* bar, int col, int row,
+                                        int head, int b, int row_slot) {
+  if (row_slot == 1)
+    tma_load_4d(dst, map, bar, col, row, head, b);
+  else
+    tma_load_4d(dst, map, bar, col, head, row, b);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Issues O += P . V for one tile (and commits it): P from registers, V
+// read MN-major from its [keys][Dh] tile at shared address `v_addr`.
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2],
+                                           const uint32_t (&pa)[4][4],
+                                           uint32_t v_addr) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t dv = desc_sw128(v_addr + kk * 16 * 128, 64 * 128, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_bf16_n128_tb(o, pa[kk], dv);
+    else
+      wgmma_rs_bf16_n64_tb(o, pa[kk], dv);
+  }
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using T = WgTile<D>;
+  constexpr int BQ = T::kBQ, BK = T::kBK;
+  static_assert(D == 64 || D == 128, "wgmma path: Dh = 64 or 128");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sQ + T::kOpBytes;      // slot s at s * kOpBytes
+  unsigned char* sV = sK + 2 * T::kOpBytes;  // likewise
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sV + 2 * T::kOpBytes);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;  // accumulator coordinates
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.group;
+  const int q_start = p.q_offset + q0;
+
+  // The key tiles the TPU kernel's relevance test keeps form one interval.
+  const int n_tiles = (p.lk_eff + BK - 1) / BK;
+  int kt_lo = n_tiles, kt_hi = 0;
+  for (int kt = 0; kt < n_tiles; ++kt)
+    if (tile_relevant(p, kt * BK, BK, q_start, BQ)) {
+      kt_lo = min(kt_lo, kt);
+      kt_hi = kt + 1;
+    }
+  const int n = max(kt_hi - kt_lo, 0);
+
+  if (tid == 0) {
+    for (int i = 0; i < 5; ++i) mbar_init(&bar[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // Thread 0 issues every copy: K or V of the j-th relevant tile into
+  // slot j % 2.
+  auto load = [&](bool is_v, int j) {
+    const int slot = j & 1;
+    unsigned char* dst = (is_v ? sV : sK) + slot * T::kOpBytes;
+    uint64_t* bj = &bar[(is_v ? 3 : 1) + slot];
+    mbar_arrive_expect_tx(bj, T::kOpBytes);
+#pragma unroll
+    for (int x = 0; x < T::kBoxes; ++x)
+      tma_box(dst + x * T::kBoxBytes, is_v ? &tm_v : &tm_k, bj, x * 64,
+              (kt_lo + j) * BK, kvh, b, is_v ? p.v_row_slot : p.k_row_slot);
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bar[0], T::kOpBytes);
+#pragma unroll
+    for (int x = 0; x < T::kBoxes; ++x)
+      tma_box(sQ + x * T::kBoxBytes, &tm_q, &bar[0], x * 64, q0, h, b,
+              p.q_row_slot);
+    if (n > 0) {
+      load(false, 0);
+      load(true, 0);
+    }
+    if (n > 1) load(false, 1);
+  }
+
+  // This thread's rows of the carry: r = 0 -> row warp*16 + g, r = 1 -> +8.
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {kMaskValue, kMaskValue}, l_run[2] = {0.f, 0.f};
+  uint32_t pa[BK / 16][4];  // P of the previous tile, the A operand of P.V
+  const int row_base = warp * 16 + g;
+  const uint32_t q_addr = smem_u32(sQ);
+  mbar_wait(&bar[0], 0);  // always: no copy may outlive the CTA
+
+  // Tile j: S_j = q . k_j^T is issued, then O += P_{j-1} . V_{j-1} behind
+  // it, so the tensor cores run P.V while this warpgroup does tile j's
+  // softmax; O is rescaled once P.V has landed.
+  for (int j = 0; j < n; ++j) {
+    if (tid == 0 && j > 0) {
+      // slots released by the barrier that ended tile j - 1
+      if (j + 1 < n) load(false, j + 1);
+      load(true, j);
+    }
+    mbar_wait(&bar[1 + (j & 1)], (j >> 1) & 1);
+    const uint32_t k_addr = smem_u32(sK + (j & 1) * T::kOpBytes);
+    float s[BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * T::kBoxBytes + (kk & 3) * 32;
+      wgmma_ss_bf16_n64(s, desc_sw128(q_addr + off, 16, 1024),
+                        desc_sw128(k_addr + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    if (j > 0) {
+      const int jv = j - 1;
+      mbar_wait(&bar[3 + (jv & 1)], (jv >> 1) & 1);
+      pv_product<D>(o, pa, smem_u32(sV + (jv & 1) * T::kOpBytes));
+      wgmma_wait<1>();  // S_j has landed; P.V may still run
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(s);
+
+    // Online softmax in base 2.  s[4i + e] is row row_base + 8*(e >> 1),
+    // key k0 + 8i + 2t + (e & 1).
+    const int k0 = (kt_lo + j) * BK;
+    const bool interior =
+        k0 + BK <= p.lk_eff && (!p.causal || k0 + BK - 1 <= q_start) &&
+        (!p.has_window || (q_start + BQ - 1) - k0 < p.window);
+    float mx[2] = {kMaskValue, kMaskValue}, m_next[2], alpha[2];
+    float rs[2] = {0.f, 0.f};
+    if (interior && !p.has_softcap) {
+      // Every key counts and the logit is dot * scale * log2 e: take the
+      // max of the raw dots (the scale is positive and rounding is
+      // monotonic), then fold the scale into one FMA per exponent.
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e)
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_next[r] = fmaxf(m_run[r], mx[r] * p.scale_log2);
+        alpha[r] = ex2(m_run[r] - m_next[r]);
+      }
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int r = (e >> 1) & 1;
+        s[e] = ex2(fmaf(s[e], p.scale_log2, -m_next[r]));
+        rs[r] += s[e];
+      }
+    } else {
+      // Masked logits are -1e30 and p is multiplied by the mask, as the
+      // TPU kernel does: a row with no key yet keeps p = 0, never NaN.
+      uint32_t keep = 0;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q_pos = q_start + row_base + 8 * (e >> 1);
+          const int k_pos = k0 + i * 8 + 2 * t + (e & 1);
+          const bool ok = interior || in_mask(p, q_pos, k_pos);
+          const float x = ok ? logit2(p, s[4 * i + e]) : kMaskValue;
+          s[4 * i + e] = x;
+          keep |= (uint32_t)ok << (4 * i + e);
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_next[r] = fmaxf(m_run[r], mx[r]);
+        alpha[r] = ex2(m_run[r] - m_next[r]);
+      }
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int r = (e >> 1) & 1;
+        s[e] = ex2(s[e] - m_next[r]) * (((keep >> e) & 1u) ? 1.f : 0.f);
+        rs[r] += s[e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      l_run[r] = alpha[r] * l_run[r] + rs[r];
+      m_run[r] = m_next[r];
+    }
+    // P_{j-1} . V_{j-1} has landed (unconditional, so the compiler sees
+    // a wait on every path from the product to the rescale)
+    wgmma_wait<0>();
+    fence_regs(o);
+    // rescale only where a row's max moved (most tiles leave it)
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+    }
+    // S's accumulator is the A fragment of P.V: keys 16kk .. 16kk + 15
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    __syncthreads();  // every warp is done with K_j and V_{j-1}
+  }
+  if (n > 0) {
+    const int jv = n - 1;
+    mbar_wait(&bar[3 + (jv & 1)], (jv >> 1) & 1);
+    pv_product<D>(o, pa, smem_u32(sV + (jv & 1) * T::kOpBytes));
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+
+  // o / l, 0 where no key was in the mask (l == 0, acc == 0).
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
+                      ((long long)b * p.hq + h) * p.lq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row_base + 8 * r;
+    if (row >= p.lq) continue;
+    const float l = l_run[r] == 0.f ? 1.f : l_run[r];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(og + (long long)row * D + i * 8 + 2 * t) =
+          pack_bf16(o[4 * i + 2 * r] / l, o[4 * i + 2 * r + 1] / l);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: CUDA-core FMAs
 // ---------------------------------------------------------------------------
 
@@ -541,6 +805,70 @@ int launch_f32(int b, const Params& p, cudaStream_t s) {
   return launch(flash_fwd_f32<D>, T::kBQ, T::kSmem, b, p, s);
 }
 
+// TMA map of a bf16 operand [batch, heads, rows, d] read through its
+// (batch, head, row) strides in elements (0 for a dimension of size 1,
+// which is never stepped): boxes of [64 rows][64 columns] with the
+// 128-byte swizzle, rows >= `rows` arriving as zeros.  The map's
+// dimensions run in order of stride, so the row coordinate sits at slot
+// 1 (rows before heads) or 2 (heads before rows: the transposed
+// [B, L, H, Dh] projections), returned in `row_slot`.
+int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
+             int batch, long long sl, long long sh, long long sb,
+             int* row_slot) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t row_b = sl > 0 ? (cuuint64_t)sl * 2 : (cuuint64_t)d * 2;
+  const cuuint64_t head_b = sh > 0 ? (cuuint64_t)sh * 2 : row_b * rows;
+  const bool heads_first = head_b < row_b;
+  const cuuint64_t batch_b =
+      sb > 0 ? (cuuint64_t)sb * 2
+             : (heads_first ? row_b * rows : head_b * heads);
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads,
+                        (cuuint64_t)batch};
+  cuuint64_t strides[3] = {row_b, head_b, batch_b};
+  cuuint32_t box[4] = {64, 64, 1, 1};
+  if (heads_first) {
+    dims[1] = heads;
+    dims[2] = rows;
+    strides[0] = head_b;
+    strides[1] = row_b;
+    box[1] = 1;
+    box[2] = 64;
+  }
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  *row_slot = heads_first ? 2 : 1;
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch_wgmma(int b, int hkv, const Params& p0, cudaStream_t s) {
+  using T = WgTile<D>;
+  Params p = p0;
+  CUtensorMap mq, mk, mv;
+  const int kv_rows = p.lk_eff > 0 ? p.lk_eff : 1;  // no tile is read at 0
+  int err = make_map(&mq, p.q, D, p.lq, p.hq, b, p.q_sl, p.q_sh, p.q_sb,
+                     &p.q_row_slot);
+  if (!err)
+    err = make_map(&mk, p.k, D, kv_rows, hkv, b, p.k_sl, p.k_sh, p.k_sb,
+                   &p.k_row_slot);
+  if (!err)
+    err = make_map(&mv, p.v, D, kv_rows, hkv, b, p.v_sl, p.v_sh, p.v_sb,
+                   &p.v_row_slot);
+  if (err) return err;
+  auto kernel = flash_fwd_wgmma<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((p.lq + T::kBQ - 1) / T::kBQ, p.hq, b);
+  kernel<<<grid, kThreads, T::kSmem, s>>>(mq, mk, mv, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -585,13 +913,18 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   p.has_softcap = has_softcap != 0;
   p.scale = scale;
   p.softcap = softcap;
+  const float log2e = 1.4426950408889634f;
+  p.scale_log2 = scale * log2e;
+  p.softcap_log2 = softcap * log2e;
+  p.scale_over_cap = has_softcap ? scale / softcap : 0.f;
+  p.q_row_slot = p.k_row_slot = p.v_row_slot = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (d) {
       case 16: return launch_bf16<16, 64>(b, p, s);
       case 32: return launch_bf16<32, 64>(b, p, s);
-      case 64: return launch_bf16<64, 64>(b, p, s);
-      case 128: return launch_bf16<128, 64>(b, p, s);
+      case 64: return launch_wgmma<64>(b, hkv, p, s);
+      case 128: return launch_wgmma<128>(b, hkv, p, s);
       case 256: return launch_bf16<256, 32>(b, p, s);
     }
   } else {

@@ -4,7 +4,10 @@ Every ``*.cu`` under ``repro_torch/csrc/`` compiles to its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), for ``sm_90a``.  Libraries land in ``build/kernels/`` at the
 repository root (listed in ``.gitignore``), named by a hash of their
-source and flags, so an edited source never loads a stale library.
+source, the ``csrc/`` headers it includes (``#include "..."``, followed
+through headers that include others) and the flags, so an edited source
+or header never loads a stale library.  TMA maps are encoded through the
+runtime's driver entry-point query, so nothing links ``libcuda``.
 ``build_all()`` starts one ``nvcc`` per source, all at once; ``load``
 builds on first use.  A failed build raises — there is no fallback.
 
@@ -16,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,9 +47,27 @@ def _nvcc() -> str:
         "repro_torch/csrc/ on a host with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly
+    or through another header, in a fixed order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(
+            path.read_bytes()) if (CSRC / inc.decode()).exists()]
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}.{digest.hexdigest()[:12]}.so"
 
 

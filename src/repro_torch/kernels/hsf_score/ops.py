@@ -33,7 +33,8 @@ KPAD = 128               # widest k the kernel serves
 ID_SENTINEL = 2**31 - 1  # id of never-filled slots
 
 _counts_lock = threading.Lock()
-# launches: fused kernel launches (both passes of one call count once);
+# launches: fused kernel launches (the query split and both passes of one
+# call count once);
 # unfused: k > KPAD calls served by the plain version
 counts = {"launches": 0, "unfused": 0}
 # launches of the single-query kernel (``hsf_score``)
@@ -71,10 +72,14 @@ def _lib():
     lib = build.load("hsf_topk")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hsf_topk_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, f, f,
-                                    p, p, p, p, p]
+                                    p, p, p, p, p, p]
     lib.hsf_topk_launch.restype = ctypes.c_int
-    lib.hsf_topk_tiles_for.argtypes = [i]
-    lib.hsf_topk_tiles_for.restype = ctypes.c_int
+    lib.hsf_topk_ctas_for.argtypes = [i]
+    lib.hsf_topk_ctas_for.restype = ctypes.c_int
+    lib.hsf_topk_split_words.argtypes = [i, i, i]
+    lib.hsf_topk_split_words.restype = ctypes.c_longlong
+    lib.hsf_topk_lists_per_cta.argtypes = []
+    lib.hsf_topk_lists_per_cta.restype = ctypes.c_int
     lib.hsf_topk_error_string.argtypes = [i]
     lib.hsf_topk_error_string.restype = ctypes.c_char_p
     return lib
@@ -127,19 +132,22 @@ def _launch(doc_vecs, doc_sigs, query_vecs, query_sigs, k, alpha, beta,
     lib = _lib()
     n, d = doc_vecs.shape
     b, w = query_sigs.shape
-    tiles = lib.hsf_topk_tiles_for(n)
     dev = doc_vecs.device
-    cand_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
-    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
-    ids = torch.empty((b, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        lists = lib.hsf_topk_ctas_for(n) * lib.hsf_topk_lists_per_cta()
+        # the queries' TF32 halves and signature words, padded for pass 1
+        split = torch.empty((lib.hsf_topk_split_words(b, d, w),),
+                            dtype=torch.int32, device=dev)
+        cand_v = torch.empty((b, lists, k), dtype=torch.float32, device=dev)
+        cand_i = torch.empty((b, lists, k), dtype=torch.int32, device=dev)
+        vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+        ids = torch.empty((b, k), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hsf_topk_launch(
             doc_vecs.data_ptr(), doc_sigs.data_ptr(), query_vecs.data_ptr(),
             query_sigs.data_ptr(), n, d, w, b, n_valid, k,
-            float(alpha), float(beta), cand_v.data_ptr(), cand_i.data_ptr(),
-            vals.data_ptr(), ids.data_ptr(), stream)
+            float(alpha), float(beta), split.data_ptr(), cand_v.data_ptr(),
+            cand_i.data_ptr(), vals.data_ptr(), ids.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"hsf_topk launch failed: {lib.hsf_topk_error_string(err).decode()}"

@@ -4,7 +4,9 @@
 hsf_score.cu``): one f32 matvec plus the containment test.
 ``hsf_score_topk_ref`` is the fused top-k kernel's (``csrc/
 hsf_topk.cu``): full [B, N] scores, then a stable sort — the expensive
-way the kernel avoids.  Both mirror the JAX package's ``ref.py``.  CPU
+way the kernel avoids.  ``hsf_score_3xtf32`` emulates the kernel's
+arithmetic for the products: the 3xTF32 split that puts them on the
+tensor cores.  Both mirror the JAX package's ``ref.py``.  CPU
 tensors use them, and so do the tests; the wrappers never take them for
 a CUDA tensor when the shape fits the kernel.
 """
@@ -57,3 +59,33 @@ def hsf_score_topk_ref(doc_vecs, doc_sigs, query_vecs, query_sigs,
         scores = scores.masked_fill(ids[None, :] >= n_valid, float("-inf"))
     vals, order = torch.sort(scores, dim=1, descending=True, stable=True)
     return vals[:, :k], order[:, :k].to(torch.int32)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 → TF32 (10 explicit mantissa bits), rounded to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``: add half of the 13
+    dropped bits to the magnitude, then clear them.  Bit operations on
+    the int32 view; the result is f32 with its low 13 bits 0."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32(x) and lo = tf32(x − hi): x ≈ hi + lo to
+    about 2⁻²² relative."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x.to(torch.float32) - hi)
+
+
+def hsf_score_3xtf32(doc_vecs, doc_sigs, query_vecs, query_sigs,
+                     alpha: float, beta: float) -> torch.Tensor:
+    """α·(q @ docsᵀ) + β·containment — float32 [B, N] — with the
+    products as the fused kernel forms them: hi·hi + hi_doc·lo_q +
+    lo_doc·hi_q of the TF32 halves, each product exact (TF32 × TF32 fits
+    f32) and summed in f32; the lo·lo term is dropped.  The kernel sums
+    in another (fixed) order, so the two agree to f32 rounding, not to
+    the bit."""
+    qh, ql = tf32_split(query_vecs)
+    dh, dl = tf32_split(doc_vecs)
+    cos = qh @ dh.T + ql @ dh.T + qh @ dl.T
+    return alpha * cos + beta * containment_matrix(doc_sigs, query_sigs)

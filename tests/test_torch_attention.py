@@ -286,3 +286,34 @@ def test_dispatch_follows_the_reference():
     assert A.resolve_backend("auto", "cuda") == "kernel"
     with pytest.raises(ValueError, match="backend"):
         A.attention(q, k, v, backend="pallas", **kw)
+
+
+# ---------------------------------------------------------------------------
+# the wgmma kernel's softmax: base 2, tile by tile
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal,window,softcap,q_offset,kv_len,lq,lk", [
+    (True, None, None, 0, None, 200, 200),
+    (True, None, 50.0, 0, None, 130, 130),
+    (False, None, None, 0, None, 96, 150),
+    (True, 40, 30.0, 0, None, 160, 160),
+    (True, None, None, 512, 590, 100, 612),
+    (True, None, None, -40, None, 128, 128),  # rows 0..39 see no key
+    (True, 16, None, -70, None, 100, 100),    # and a window past them
+])
+def test_base2_tile_softmax_matches_attention_ref(causal, window, softcap,
+                                                  q_offset, kv_len, lq, lk):
+    """The kernel's per-tile update (logits × log2 e, exp2, -1e30
+    masking, p × mask, rescale by 2^(m - m')) equals the dense softmax,
+    and a row with no key in the mask is exactly 0, never NaN."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_base2_tiles, attention_ref)
+    q, k, v = _t(*_qkv(1, 6, 2, lq, 32, lq + lk, lk=lk))
+    kw = dict(scale=32 ** -0.5, causal=causal, window=window,
+              softcap=softcap, q_offset=q_offset, kv_len=kv_len)
+    got = attention_base2_tiles(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if q_offset < 0:
+        assert not got[:, :, :-q_offset].any()

@@ -160,3 +160,94 @@ def test_numpy_reference_and_top_k_order():
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     assert ti.tolist() == [[1, 3, 0, 2, 5]]
+
+
+# ---------------------------------------------------------------------------
+# the fused kernel's arithmetic: products as 3xTF32 on the tensor cores
+# ---------------------------------------------------------------------------
+
+SCORE_ATOL = 1e-5  # chip_smoke.py's kernel-vs-plain score tolerance
+
+
+def test_tf32_rna_rounds_to_nearest_with_ties_away():
+    from repro_torch.kernels.hsf_score.ref import tf32_rna
+    one_ulp = 2.0 ** -10  # TF32 ulp at 1.0
+    x = torch.tensor([1.0, 1.0 + one_ulp / 2, 1.0 + one_ulp * 1.5,
+                      -(1.0 + one_ulp / 2), 1.0 + one_ulp * 0.49, 0.0,
+                      3.0e38, 1e-30], dtype=torch.float32)
+    got = tf32_rna(x)
+    assert got.tolist()[:6] == [1.0, 1.0 + one_ulp, 1.0 + 2 * one_ulp,
+                                -(1.0 + one_ulp), 1.0, 0.0]
+    rng = np.random.default_rng(0)
+    r = torch.from_numpy((rng.normal(size=4096) *
+                          10.0 ** rng.integers(-20, 20, 4096)
+                          ).astype(np.float32))
+    h = tf32_rna(r)
+    assert (h.view(torch.int32) & 0x1FFF).eq(0).all()
+    # within half a TF32 ulp of x (2^-11 relative)
+    rel = ((h.double() - r.double()).abs() / r.double().abs()).max()
+    assert rel <= 2.0 ** -11
+
+
+def test_tf32_split_recovers_f32():
+    from repro_torch.kernels.hsf_score.ref import tf32_split
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(64, 1000)).astype(np.float32))
+    hi, lo = tf32_split(x)
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert (err <= 2.0 ** -22 * x.double().abs()).all()
+
+
+def _unit(x):
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("corpus", ["dense-256", "dense-4096", "engine-128",
+                                    "engine-384", "engine-1024"])
+def test_3xtf32_scores_match_float64_reference(corpus):
+    """The kernel's product arithmetic against the float64 oracle, on
+    the dense inputs and the engine's data of this file (unit rows, as
+    served): within SCORE_ATOL, and far inside it."""
+    from repro_torch.kernels.hsf_score.ref import hsf_score_3xtf32
+    kind, d = corpus.split("-")
+    d = int(d)
+    if kind == "dense":
+        mat, _, sigs, _ = _dense(120, d, 128, d)
+        mat = _unit(mat)
+        rng = np.random.default_rng(d + 1)
+        qv = _unit(rng.normal(size=(6, d)))
+        qs = np.stack([sigs[i] & sigs[i + 1] for i in range(6)])
+    else:
+        mat, sigs, queries = _corpus(d)
+        qv = np.stack([q for q, _ in queries]).astype(np.float32)
+        qs = np.stack([s for _, s in queries])
+    got = hsf_score_3xtf32(*(torch.from_numpy(a) for a in (mat, sigs, qv, qs)),
+                           0.9, 1.3).numpy()
+    want = np.stack([hsf.numpy_reference(mat, sigs, q, s, 0.9, 1.3)
+                     for q, s in zip(qv, qs)])
+    err = np.abs(got.astype(np.float64) - want).max()
+    assert err <= SCORE_ATOL / 10, err
+
+
+@pytest.mark.parametrize("k", [5, 16])
+def test_3xtf32_top_k_ids_match_the_plain_version(k):
+    """Top k of the emulated kernel scores against the plain version's
+    (full f32 gemm, stable sort): scores within SCORE_ATOL, ids equal
+    wherever the plain scores are more than SCORE_ATOL apart."""
+    from repro_torch.kernels.hsf_score.ref import (hsf_score_3xtf32,
+                                                   hsf_score_topk_ref)
+    mat, _, sigs, _ = _dense(400, 512, 16, 17)
+    mat = _unit(mat)
+    rng = np.random.default_rng(18)
+    qv = _unit(rng.normal(size=(8, 512)))
+    qs = np.stack([sigs[i] & sigs[i + 3] for i in range(8)])
+    t = [torch.from_numpy(a) for a in (mat, sigs, qv, qs)]
+    scores = hsf_score_3xtf32(*t, 1.0, 1.0)
+    gv, gi = torch.sort(scores, dim=1, descending=True, stable=True)
+    pv, pi = hsf_score_topk_ref(*t, 1.0, 1.0, 400)
+    for row in range(8):
+        for p in range(k):
+            assert abs(float(gv[row, p]) - float(pv[row, p])) <= SCORE_ATOL
+            if int(gi[row, p]) != int(pi[row, p]):
+                near = pi[row][(pv[row] - pv[row, p]).abs() <= SCORE_ATOL]
+                assert int(gi[row, p]) in near.tolist(), (row, p)

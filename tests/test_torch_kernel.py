@@ -199,3 +199,27 @@ def test_build_targets_are_named_by_source_and_flags():
     assert target.name.startswith("libhsf_topk.") and target.suffix == ".so"
     assert build._target("hsf_topk") == target
     assert (build.CSRC / "hsf_topk.cu").exists()
+
+
+def test_build_target_follows_included_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc/ header it
+    includes, through headers that include others: editing a header
+    renames the library, so a stale one never loads.  No nvcc needed."""
+    (tmp_path / "a.cu").write_text('#include "h1.cuh"\n#include <cuda.h>\n')
+    (tmp_path / "h1.cuh").write_text('#pragma once\n#include "h2.cuh"\n')
+    (tmp_path / "h2.cuh").write_text("// v1\n")
+    (tmp_path / "b.cu").write_text("// no headers\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build._sources("a")] == ["a.cu", "h1.cuh",
+                                                     "h2.cuh"]
+    before_a, before_b = build._target("a"), build._target("b")
+    (tmp_path / "h2.cuh").write_text("// v2\n")
+    assert build._target("a") != before_a
+    assert build._target("b") == before_b
+    assert build._target("a").name.startswith("liba.")
+
+
+def test_port_sources_name_their_shared_header():
+    """The two wgmma kernels build from the shared Hopper header."""
+    for name in ("flash_attention", "hsf_topk"):
+        assert "hopper.cuh" in [p.name for p in build._sources(name)]
