@@ -8,8 +8,10 @@ Phases (any failure raises and the script exits non-zero):
 1. Card: name and power limit (``nvidia-smi``); build every CUDA kernel
    of the port from ``src/repro_torch/csrc/`` (one ``nvcc`` per source,
    all at once), with each library's registers and spills, and per kernel
-   instantiation whether its SASS holds HGMMA (wgmma), UTMALDG (TMA) and
-   HMMA (mma.sync); the wgmma designs must hold the first two.
+   instantiation its registers, static shared memory and spills and
+   whether its SASS holds HGMMA (wgmma), UTMALDG (TMA) and HMMA
+   (mma.sync); the wgmma designs must hold the first two, and the top-k
+   radix select's four kernels must be there.
 2. Kernels against their plain versions, on the card: the fused HSF
    top-k at the serving shape (N=65,536 docs, D=4,096, W=128 signature
    words, B=64 queries, k=16) and at its edges (ragged N, n_valid < N,
@@ -24,9 +26,12 @@ Phases (any failure raises and the script exits non-zero):
    kv_len ending mid-tile in an Lk of 611); then the
    single-query HSF score at the serving shape in f32 and bf16 and at
    its edges (ragged N, D without 16-byte rows, W=3, n = 0, the boost
-   exactly β); then the streaming top-k at N=65,536 and 16,777,216 with
-   k = 1, 16, 128, small N with k = N, duplicate-heavy and -inf-laden
-   scores (ids and values exactly equal); then the EmbeddingBag kernel
+   exactly β); then the top-k radix select at N=65,536 (one launch) and
+   16,777,216 with k = 1, 16, 128, duplicate-heavy, -inf-laden, ±0.0
+   and +inf scores at both, the recsys shape (1,000,448 with -inf
+   padding), all-equal scores at 16,777,216, small N with k = N (ids and
+   value bits exactly equal), and a CUDA graph of each launch sequence
+   replayed to the eager bits; then the EmbeddingBag kernel
    on a dlrm-rm2 FULL table (48 GB): the serve_p99 and serve_bulk
    batches as bags, one row per bag (bit for bit), rows near row
    187.7 M (byte offsets past 2³¹), empty, unsorted and duplicate
@@ -44,9 +49,11 @@ Phases (any failure raises and the script exits non-zero):
    call, and the map path must give the same bits on the card and on
    the CPU.
 4. Timings of the HSF kernels and the top-k at their serving shapes
-   (top-k also at 16,777,216 scores): kernel, plain version, the
-   library yardstick, and the bound, as device time of calls queued
-   back to back.
+   (top-k also at the recsys shape, 1,000,448, and at 16,777,216 scores
+   with k = 16 and 128): kernel, plain version, the library yardstick,
+   and the bound, as device time of calls queued back to back; then one
+   plain read of the 16,777,216 scores, and top-k of all-equal and
+   five-valued scores there.
 5. Full-width cross-check: last-position prefill logits of llama3.2-3b
    (the served weights) for four prompts through the flash kernel and
    through the plain blockwise path.
@@ -64,7 +71,8 @@ Phases (any failure raises and the script exits non-zero):
    flat, probed fraction, span medians, time per query); the trained
    state saved, reloaded and adopted with no retrain; the postings
    prefilter; and the single-query path — ``hsf_scores_kernel`` then
-   ``top_k`` per query — whose launches the ``kernels`` line reports.
+   ``top_k`` per query — whose launches the ``kernels`` line reports,
+   then its 256 top-k calls timed.
 8. The recsys plane at full width: dlrm-rm2 FULL initialised on the
    card (a 48.07 GB table, filled in place) and served through
    ``make_recsys_step(kind="recsys_serve")`` at serve_p99 (512) and
@@ -135,11 +143,17 @@ def _log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 # instantiation -> SASS instructions it must hold: the Hopper designs'
-# warpgroup products (HGMMA) and TMA loads (UTMALDG)
+# warpgroup products (HGMMA) and TMA loads (UTMALDG); the radix select's
+# kernels must be there (the one-launch cluster, the two reads of the
+# multi-launch path and its cluster over the candidate buffer)
 _SASS_REQUIRED = {
     "flash_fwd_wgmma<64>": ("HGMMA", "UTMALDG"),
     "flash_fwd_wgmma<128>": ("HGMMA", "UTMALDG"),
     "hsf_topk_tiles": ("HGMMA", "UTMALDG"),
+    "topk_cluster<1>": (),
+    "topk_cluster<0>": (),
+    "topk_hist<1>": (),
+    "topk_filter<1>": (),
 }
 
 
@@ -181,12 +195,17 @@ def _sass_report(build, reports):
     Hopper design lacks what it must hold."""
     import shutil
 
-    regs = {}
+    usage = {}  # mangled name -> registers, static smem and spill bytes
     for report in reports.values():
-        for fn, used in re.findall(
-                r"Compiling entry function '(\S+)'.*?Used (\d+) registers",
-                report, re.S):
-            regs[fn] = used
+        for chunk in report.split("Compiling entry function '")[1:]:
+            fn = chunk.split("'", 1)[0]
+            regs = re.search(r"Used (\d+) registers", chunk)
+            smem = re.search(r"(\d+) bytes smem", chunk)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", chunk)
+            usage[fn] = (regs.group(1) if regs else "?",
+                         int(smem.group(1)) if smem else 0,
+                         sum(map(int, spill.groups())) if spill else 0)
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
@@ -202,8 +221,9 @@ def _sass_report(build, reports):
             mangled = body.split("\n", 1)[0].strip()
             label = _kernel_label(mangled)
             has = {op: op in body for op in ("HGMMA", "UTMALDG", "HMMA")}
-            _log(f"  SASS {name}: {label:28s} {regs.get(mangled, '?'):>3s} "
-                 "registers, " + " ".join(
+            regs, smem, spill = usage.get(mangled, ("?", 0, 0))
+            _log(f"  SASS {name}: {label:28s} {regs:>3s} registers, "
+                 f"{smem:6d} B static smem, {spill} B spills, " + " ".join(
                      f"{op} {'yes' if v else 'no'}" for op, v in has.items()))
             for op in _SASS_REQUIRED.get(label, ()):
                 assert has[op], f"{label} holds no {op}"
@@ -389,9 +409,12 @@ def phase_hsf_score_kernel(torch, np, ops, ref):
 
 
 def phase_topk_kernel(torch, np, tk_ops, tk_ref):
-    """Streaming top-k kernel against its plain version: ids and values
-    exactly equal, over random, duplicate-heavy and -inf-laden vectors at
-    N = 65,536 and 16,777,216 and small N with k = N."""
+    """Top-k kernel (radix select) against its plain version: ids and
+    values exactly equal, over random, duplicate-heavy, -inf-laden, ±0.0
+    and +inf vectors at N = 65,536 (one launch) and 16,777,216, the
+    recsys retrieval shape (1,000,448 with -inf padding), all-equal
+    scores at 16,777,216, and small N with k = N; then one CUDA-graph
+    capture and replay per launch sequence, equal to the eager bits."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     ninf = float("-inf")
 
@@ -408,25 +431,69 @@ def phase_topk_kernel(torch, np, tk_ops, tk_ref):
         s[at] = dups(finite)
         return s
 
+    def zeros(n):  # -0.0, +0.0 and -1 at random: the top is all zeros
+        pick = torch.randint(0, 3, (n,), device="cuda", generator=gen)
+        return torch.tensor([-0.0, 0.0, -1.0], device="cuda")[pick]
+
+    def with_inf(n):  # a few +inf, two of them adjacent, in normal scores
+        s = normal(n)
+        s[torch.randperm(n, device="cuda", generator=gen)[:5]] = float("inf")
+        s[n // 2:n // 2 + 2] = float("inf")
+        return s
+
+    def padded(n, real):  # recsys retrieval: padding at -inf
+        s = normal(n)
+        s[real:] = ninf
+        return s
+
     cases = []
     for n in (N_DOCS, TOPK_LONG_N):
         for k in (1, 16, 128):
             cases.append((f"normal N={n}", normal(n), k))
         cases.append((f"duplicates N={n}", dups(n), 128))
         cases.append((f"40 finite, rest -inf N={n}", sparse(n, 40), 128))
+        cases.append((f"±0.0 ties N={n}", zeros(n), 128))
+        cases.append((f"+inf present N={n}", with_inf(n), 16))
+    for k in (16, 128):
+        cases.append((f"recsys N={RETRIEVAL_PAD} (-inf pad)",
+                      padded(RETRIEVAL_PAD, RETRIEVAL_N), k))
+        cases.append((f"all equal N={TOPK_LONG_N}",
+                      torch.full((TOPK_LONG_N,), 0.5, device="cuda"), k))
     for n in (1, 5, 100, 128):
         cases.append((f"k = N = {n}", normal(n), n))
     cases.append(("[1, -inf, 2, -inf, 1]", torch.tensor(
         [1.0, ninf, 2.0, ninf, 1.0], device="cuda"), 5))
     cases.append(("all -inf", torch.full((3000,), ninf, device="cuda"), 7))
+    cases.append(("all -inf N=1,000,448", torch.full(
+        (RETRIEVAL_PAD,), ninf, device="cuda"), 16))
     for name, scores, k in cases:
         kv, ki = tk_ops.top_k(scores, k)
         torch.cuda.synchronize()
         pv, pi = tk_ref.top_k_ref(scores, k)
         assert kv.shape == (k,) and ki.dtype == torch.int32, name
         assert torch.equal(ki, pi), (name, ki[:8].tolist(), pi[:8].tolist())
-        assert torch.equal(kv, pv), (name, kv[:8].tolist(), pv[:8].tolist())
-        _log(f"  top_k == plain: {name:32s} k={k:3d} ids and values equal")
+        # bits, so that -0.0 and +0.0 differ
+        assert torch.equal(kv.view(torch.int32), pv.view(torch.int32)), \
+            (name, kv[:8].tolist(), pv[:8].tolist())
+        _log(f"  top_k == plain: {name:32s} k={k:3d} ids and value bits "
+             "equal")
+    del cases
+    lib = tk_ops._lib()
+    for n in (N_DOCS, RETRIEVAL_PAD):
+        scores = normal(n)
+        ev, ei = tk_ops.top_k(scores, TOP_K)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gv, gi = tk_ops.top_k(scores, TOP_K)
+        gv.zero_()
+        gi.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(gi, ei) and torch.equal(
+            gv.view(torch.int32), ev.view(torch.int32)), ("graph", n)
+        _log(f"  top_k N={n} k={TOP_K}: a CUDA graph captured once "
+             f"({lib.topk_kernels_for(n)} kernel launch(es) a call) and "
+             "replayed gives the eager ids and value bits")
     return 0.0
 
 
@@ -867,8 +934,9 @@ def phase_timings(torch, ops, ref):
 
 def phase_new_kernel_timings(torch, ops, ref, tk_ops, tk_ref):
     """Single-query HSF at the serving shape (f32) and top-k of a
-    65,536-score vector at k = 16 (the single-query path's shapes), and
-    top-k of a 16,777,216-score vector: kernel, plain version, library
+    65,536-score vector at k = 16 (the single-query path's shapes), of
+    the recsys retrieval shape (1,000,448 scores, the last 448 at -inf,
+    k = 16), and of a 16,777,216-score vector: kernel, plain version, library
     yardstick and bound, as device time of calls queued behind a spin
     kernel."""
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -901,9 +969,11 @@ def phase_new_kernel_timings(torch, ops, ref, tk_ops, tk_ref):
          f" of it, {nbytes / score['ms'] / 1e9:.2f} TB/s")
     del dv, ds
     out = {"score": score}
-    for n, k, reps in ((N_DOCS, TOP_K, 50), (TOPK_LONG_N, TOP_K, 10),
-                       (TOPK_LONG_N, 128, 5)):
+    for n, k, reps in ((N_DOCS, TOP_K, 50), (RETRIEVAL_PAD, TOP_K, 20),
+                       (TOPK_LONG_N, TOP_K, 10), (TOPK_LONG_N, 128, 5)):
         scores = torch.randn(n, device="cuda", generator=gen)
+        if n == RETRIEVAL_PAD:  # the recsys retrieval step's padding
+            scores[RETRIEVAL_N:] = float("-inf")
         kernel = lambda: tk_ops.top_k(scores, k)  # noqa: E731
         plain = lambda: tk_ref.top_k_ref(scores, k)  # noqa: E731
         library = lambda: torch.topk(scores, k)  # noqa: E731
@@ -917,12 +987,34 @@ def phase_new_kernel_timings(torch, ops, ref, tk_ops, tk_ref):
         nbytes = 4 * n + 8 * k
         t.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
         _log(f"  top_k N={n} k={k}: kernel {t['ms']:.4f} ms (again "
-             f"{again:.4f} ms), plain (stable sort) {t['plain_ms']:.4f} ms, "
-             f"library torch.topk {t['library_ms']:.4f} ms; bound "
-             f"{t['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB / 3.35 TB/s); "
-             f"kernel at {t['bound_ms'] / t['ms']:.1%} of it")
+             f"{again:.4f} ms; {tk_ops._lib().topk_kernels_for(n)} kernel "
+             f"launch(es) a call), plain (stable sort) "
+             f"{t['plain_ms']:.4f} ms, library torch.topk "
+             f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
+             f"({nbytes / 1e6:.2f} MB / 3.35 TB/s); kernel at "
+             f"{t['bound_ms'] / t['ms']:.1%} of it, "
+             f"{t['library_ms'] / t['ms']:.2f}× torch.topk's speed")
         out[(n, k)] = t
         del scores
+    # what one plain read of the 16.8 M vector takes on this card, the
+    # floor under the kernel's first pass; then the inputs whose ties put
+    # every candidate in one bucket (whole-cluster passes over N keys)
+    scores = torch.randn(TOPK_LONG_N, device="cuda", generator=gen)
+    torch.sum(scores)
+    read_ms = _queued_ms(torch, lambda: torch.sum(scores), 10, 10)
+    _log(f"  one read of {TOPK_LONG_N} scores (torch.sum): {read_ms:.4f} ms, "
+         f"{4 * TOPK_LONG_N / read_ms / 1e9:.2f} TB/s")
+    for name, scores in (
+            ("all equal", torch.full((TOPK_LONG_N,), 0.5, device="cuda")),
+            ("five values", torch.randint(0, 5, (TOPK_LONG_N,), device="cuda",
+                                          generator=gen).to(torch.float32))):
+        kernel = lambda: tk_ops.top_k(scores, 128)  # noqa: E731
+        library = lambda: torch.topk(scores, 128)  # noqa: E731
+        kernel()
+        library()
+        _log(f"  top_k N={TOPK_LONG_N} k=128, {name}: kernel "
+             f"{_queued_ms(torch, kernel, 2, 3):.4f} ms, library torch.topk "
+             f"{_queued_ms(torch, library, 2, 3):.4f} ms")
     return out
 
 
@@ -1296,12 +1388,13 @@ def phase_ivf(torch, np, ops, tk_ops, ctx, tmp):
     map_want = map_eng.query_batch(queries, k=TOP_K)
     ops.reset_counts()
     tk_ops.reset_counts()
-    single, from_map = [], []
+    single, from_map, score_vectors = [], [], []
     for i in range(len(queries)):
         scores = hsf.hsf_scores_kernel(dv, ds, qv[i], qs[i], ALPHA, BETA)
+        map_scores = hsf.hsf_scores(dv, ds, qv[i], qs[i], ALPHA, BETA)
         single.append(tk_ops.top_k(scores, TOP_K))
-        from_map.append(tk_ops.top_k(
-            hsf.hsf_scores(dv, ds, qv[i], qs[i], ALPHA, BETA), TOP_K))
+        from_map.append(tk_ops.top_k(map_scores, TOP_K))
+        score_vectors += [scores, map_scores]
     torch.cuda.synchronize()
     score_launches = ops.single_counts["launches"]
     topk_launches = tk_ops.counts["launches"]
@@ -1320,6 +1413,14 @@ def phase_ivf(torch, np, ops, tk_ops, ctx, tmp):
          f"top_k launches {topk_launches}; ids equal the flat kernel path "
          f"under the near-tie rule (max |Δscore| {err:.2e}); top_k of the "
          "map-path scores gives the map engine's ids and scores exactly")
+    # the path's top_k launches again, on the same vectors, timed (after
+    # the counts were read)
+    total_ms = _queued_ms(torch, lambda: [tk_ops.top_k(x, TOP_K)
+                                          for x in score_vectors], 1, 5)
+    _log(f"  (f) its {len(score_vectors)} top_k calls: {total_ms:.4f} ms of "
+         f"device time, {total_ms / len(score_vectors) * 1e3:.2f} us each "
+         f"(the earlier k-round design's 0.0246 ms a call: "
+         f"{len(score_vectors) * 0.0246:.2f} ms)")
     return score_launches, topk_launches
 
 
@@ -1545,7 +1646,8 @@ def phase_recsys(torch, np, bag_ops, bag_ref, tk_ops, tk_ref):
          f"{RETRIEVAL_PAD:,}, padding at -inf): top_k launches "
          f"{topk_launches}; ids and values equal the plain top-k's; the top "
          f"16 scores equal the CPU's within {RECSYS_TOL:g} (max |Δ| "
-         f"{err:.3e}); step {retrieval_ms:.4f} ms (CUDA events, median)")
+         f"{err:.3e}); step {retrieval_ms:.4f} ms (CUDA events, median; "
+         "1.178 ms with the earlier k-round top-k)")
 
     # (d) timings
     bag_timing = {b: _time_bag(torch, F, bag_ops, bag_ref, table,

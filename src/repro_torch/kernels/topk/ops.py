@@ -1,4 +1,4 @@
-"""Wrapper of the streaming top-k kernel (``csrc/topk.cu``).
+"""Wrapper of the top-k kernel (``csrc/topk.cu``, a radix select).
 
 Keeps the JAX package's ``top_k`` contract: (values [k] f32, ids [k]
 int32) of a score vector [N], ordered (score desc, id asc), k ≤
@@ -12,7 +12,10 @@ kernel ranks them first.
 Dispatch is by the tensor's device and nothing else: a CUDA tensor
 launches the kernel (or raises — wrong dtype, device or layout, a
 failed build, a launch error); a CPU tensor takes the plain version in
-``ref.py``.
+``ref.py``.  On the card a call is a fixed launch sequence for its N
+(one launch up to 262,144 scores, a memset and three launches above)
+that reads nothing back to the host, so it can be captured in a CUDA
+graph.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from repro_torch.kernels.topk.ref import ID_SENTINEL, top_k_ref
 KPAD = 128  # widest k the kernel serves
 
 _counts_lock = threading.Lock()
-# launches: kernel calls (all reduction levels of one call count once)
+# launches: kernel calls (the multi-launch path of one call counts once)
 counts = {"launches": 0}
 
 
@@ -51,10 +54,12 @@ def _lib():
 
     lib = build.load("topk")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.topk_launch.argtypes = [p, ll, i, p, p, p, p, p]
+    lib.topk_launch.argtypes = [p, ll, i, p, p, p, p]
     lib.topk_launch.restype = ctypes.c_int
-    lib.topk_tiles_for.argtypes = [ll]
-    lib.topk_tiles_for.restype = ll
+    lib.topk_scratch_bytes.argtypes = [ll]
+    lib.topk_scratch_bytes.restype = ll
+    lib.topk_kernels_for.argtypes = [ll]
+    lib.topk_kernels_for.restype = i
     lib.topk_error_string.argtypes = [i]
     lib.topk_error_string.restype = ctypes.c_char_p
     return lib
@@ -70,17 +75,17 @@ def _launch(scores: torch.Tensor, k: int):
         raise ValueError("N must stay below the sentinel id 2**31 - 1")
     lib = _lib()
     dev = scores.device
-    tiles = lib.topk_tiles_for(n)
-    scratch = 2 * tiles * k if tiles > 1 else 1
-    scratch_v = torch.empty((scratch,), dtype=torch.float32, device=dev)
-    scratch_i = torch.empty((scratch,), dtype=torch.int32, device=dev)
+    # the state, the segment maxima and a candidate buffer of N keys, for
+    # N past the one-launch path; nothing is read back, so a call can be
+    # captured
+    scratch = torch.empty((max(1, lib.topk_scratch_bytes(n)),),
+                          dtype=torch.uint8, device=dev)
     vals = torch.empty((k,), dtype=torch.float32, device=dev)
     ids = torch.empty((k,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.topk_launch(scores.data_ptr(), n, k, scratch_v.data_ptr(),
-                              scratch_i.data_ptr(), vals.data_ptr(),
-                              ids.data_ptr(), stream)
+        err = lib.topk_launch(scores.data_ptr(), n, k, scratch.data_ptr(),
+                              vals.data_ptr(), ids.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"topk launch failed: {lib.topk_error_string(err).decode()} "
@@ -90,7 +95,7 @@ def _launch(scores: torch.Tensor, k: int):
 
 
 def top_k(scores: torch.Tensor, k: int):
-    """Streaming top-k: (values [k] f32, ids [k] int32), ordered
+    """Top-k: (values [k] f32, ids [k] int32), ordered
     (score desc, id asc); needs 1 ≤ k ≤ min(N, 128)."""
     if scores.dim() != 1:
         raise ValueError(f"scores must be 1-D, got {tuple(scores.shape)}")

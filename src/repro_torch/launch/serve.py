@@ -95,6 +95,8 @@ def main(argv=None):
                     choices=["auto", "map", "gemm", "kernel"],
                     help="auto = the CUDA kernel on a CUDA device, the "
                     "bit-stable map path on the CPU")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="legacy alias for --scoring-path kernel")
     ap.add_argument("--index", default="flat",
                     choices=["flat", "ivf", "ivf-sharded"],
                     help="flat = full scan; ivf = clustered probe/rerank "
@@ -159,7 +161,7 @@ def main(argv=None):
         kb,
         max_batch=max(1, args.max_batch),
         flush_deadline=args.flush_deadline_ms / 1e3,
-        scoring_path=args.scoring_path,
+        scoring_path="kernel" if args.use_kernel else args.scoring_path,
         index=args.index,
         nprobe=args.nprobe,
         guarantee=args.guarantee,

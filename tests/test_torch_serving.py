@@ -160,6 +160,41 @@ def test_serve_without_a_card_and_without_device_raises(tmp_path,
         serve.main(["--dim", "512", "--queries", "x"])
 
 
+class _Built(Exception):
+    """Raised by a stand-in runtime once it has seen its arguments."""
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--use-kernel"], "kernel"),
+    (["--scoring-path", "map", "--use-kernel"], "kernel"),
+    (["--scoring-path", "gemm"], "gemm"),
+    ([], "auto"),
+])
+def test_both_serve_parsers_resolve_use_kernel_to_the_same_scoring_path(
+        argv, want, monkeypatch):
+    """``--use-kernel`` is the JAX package's ``serve.py`` alias for
+    ``--scoring-path kernel``; the port's parser accepts it and hands
+    the runtime the same scoring path."""
+    from repro.launch import serve as ref_serve
+
+    seen = {}
+
+    def runtime(tag):
+        def build(kb, **kwargs):
+            seen[tag] = kwargs["scoring_path"]
+            raise _Built
+        return build
+
+    monkeypatch.setattr(ref_serve, "ServingRuntime", runtime("ref"))
+    monkeypatch.setattr(serve, "ServingRuntime", runtime("port"))
+    args = ["--dim", "256", "--queries", "x", *argv]
+    with pytest.raises(_Built):
+        ref_serve.main(args)
+    with pytest.raises(_Built):
+        serve.main([*args, "--device", "cpu"])
+    assert seen == {"ref": want, "port": want}
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"

@@ -25,7 +25,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.hsf_score import ops
 from repro_torch.kernels.hsf_score.ref import hsf_score_ref
 from repro_torch.kernels.topk import ops as tk_ops
-from repro_torch.kernels.topk.ref import top_k_ref
+from repro_torch.kernels.topk.ref import (
+    id_bits,
+    radix_select,
+    score_keys,
+    top_k_ref,
+)
 
 # the suite runs test files in parallel workers: keep this file's torch
 # ops on one thread so they do not starve the other workers
@@ -206,6 +211,107 @@ def test_plain_versions_match_their_oracles():
     v, i = top_k_ref(s, 5)
     assert i.tolist() == [1, 2, 0, 3, 2**31 - 1]
     assert v[:4].tolist() == [2.0, 2.0, 0.5, -1.0]
+
+
+# ---------------------------------------------------------------------------
+# the kernel's radix select, emulated step by step (ref.radix_select)
+# ---------------------------------------------------------------------------
+
+def _radix_case(name):
+    """(scores, k) of the cases the kernel's selection must get bit for
+    bit, from a seed, with numpy."""
+    rng = np.random.default_rng(len(name))
+    if name == "random":
+        return rng.normal(size=3000).astype(np.float32), 17
+    if name == "five values":
+        return rng.integers(0, 5, size=3001).astype(np.float32), 128
+    if name == "±0.0 mixed":
+        s = rng.choice(np.array([-0.0, 0.0, -1.0], np.float32), size=2000)
+        return s, 100
+    if name == "+inf present":
+        s = rng.normal(size=1500).astype(np.float32)
+        s[[3, 700, 701, 1499]] = np.inf
+        return s, 9
+    if name == "fewer finite than k":
+        s = np.full(2000, -np.inf, np.float32)
+        s[rng.choice(2000, 40, replace=False)] = rng.integers(0, 5, 40)
+        return s, 128
+    if name == "fewer finite than k, one block":
+        s = np.full(1000, -np.inf, np.float32)
+        s[rng.choice(1000, 7, replace=False)] = rng.normal(size=7)
+        return s, 20
+    if name == "ragged N":
+        return rng.normal(size=4097).astype(np.float32), 64
+    if name == "k = N":
+        return rng.normal(size=128).astype(np.float32), 128
+    if name == "all equal":
+        return np.full(5000, 0.25, np.float32), 33
+    if name == "N = 1":
+        return np.array([-3.5], np.float32), 1
+    raise KeyError(name)
+
+
+_RADIX_CASES = ["random", "five values", "±0.0 mixed", "+inf present",
+                "fewer finite than k", "fewer finite than k, one block",
+                "ragged N", "k = N", "all equal", "N = 1"]
+
+
+def _bits(v):
+    return np.asarray(v, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("groups", [None, 128])
+@pytest.mark.parametrize("name", _RADIX_CASES)
+def test_radix_select_is_bit_equal_to_the_stable_sort(name, groups):
+    """Key transform, digit passes, bucket choice and final sort give the
+    plain version's ids and value bits — also after the bound on group
+    maxima that the kernel applies first (its 128 warps)."""
+    s, k = _radix_case(name)
+    v, i, _ = radix_select(torch.from_numpy(s), k, groups=groups)
+    rv, ri = top_k_ref(torch.from_numpy(s), k)
+    np.testing.assert_array_equal(i.numpy(), ri.numpy())
+    np.testing.assert_array_equal(_bits(v), _bits(rv))
+
+
+@pytest.mark.parametrize("name", [
+    "random", "five values", "±0.0 mixed", "+inf present",
+    "fewer finite than k, one block", "k = N", "all equal", "N = 1"])
+def test_radix_select_matches_the_jax_kernel(name):
+    """Against the JAX kernel in interpret mode wherever it is consistent:
+    it repeats ids when fewer entries than k are finite across more than
+    one of its blocks (ROADMAP Queue 3 item 4), so that case stays with
+    the plain version above."""
+    s, k = _radix_case(name)
+    if s.size > 1024:  # one interpret-mode block per 1,024 scores
+        k = min(k, 32)
+    v, i, _ = radix_select(torch.from_numpy(s), k)
+    jv, ji = ref_topk_ops.top_k(jnp.asarray(s), k, interpret=True)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(_bits(v), _bits(np.asarray(jv)))
+
+
+def test_score_keys_sort_as_the_floats():
+    f = np.array([-np.inf, -3.4e38, -1.0, -1e-45, -0.0, 0.0, 1e-45, 1.0,
+                  3.4e38, np.inf, np.nan], np.float32)
+    keys = score_keys(torch.from_numpy(f)).tolist()
+    assert keys[0] == 0 and keys[-1] == 0  # -inf and NaN: no candidate
+    assert keys[4] == keys[5] == 2**31  # -0.0 and +0.0 tie
+    real = keys[1:4] + keys[5:10]
+    assert real == sorted(real) and len(set(real)) == len(real)
+    assert min(real) > 0x007FFFFF and max(real) < 2**32
+
+
+def test_radix_select_reaches_the_id_bits_only_on_ties():
+    """Distinct scores settle within the score key's passes; a tie that
+    spans the k-th slot takes passes over the id bits, decided from the
+    counts alone."""
+    n = 5000
+    s = np.random.default_rng(3).permutation(n).astype(np.float32)
+    _, _, passes = radix_select(torch.from_numpy(s), 16)
+    assert min(passes) >= id_bits(n)
+    _, i, passes = radix_select(torch.from_numpy(np.ones(n, np.float32)), 16)
+    assert min(passes) < id_bits(n)
+    assert i.tolist() == list(range(16))
 
 
 # ---------------------------------------------------------------------------
