@@ -42,12 +42,13 @@ Phases (any failure raises and the script exits non-zero):
    save → micro-batched serving → generation with llama3.2-3b at full
    width in bf16, random weights from seed 0), then served again from
    the reloaded container with tracing on (its span breakdown is
-   printed).  Recall@1 must be 1.0 on the entity queries, every request
-   must generate, the reloaded run must give the same ids, scores and
-   token ids, the HSF kernel's launches must equal the scoring
-   dispatches, flash launches must be 28 per prefill with no plain
-   call, and the map path must give the same bits on the card and on
-   the CPU.
+   printed).  Generation replays CUDA graphs of the prefill (one per
+   prompt bucket) and decode steps.  Recall@1 must be 1.0 on the entity
+   queries, every request must generate, the reloaded run must give the
+   same ids, scores and token ids, the HSF kernel's launches must equal
+   the scoring dispatches, flash launches must be 28 per prefill (each a
+   replay) with no plain call, and the map path must give the same bits
+   on the card and on the CPU.
 4. Timings of the HSF kernels and the top-k at their serving shapes
    (top-k also at the recsys shape, 1,000,448, and at 16,777,216 scores
    with k = 16 and 128): kernel, plain version, the library yardstick,
@@ -85,6 +86,21 @@ Phases (any failure raises and the script exits non-zero):
    (kernel, sort + offsets, plain, ``F.embedding_bag``, bound) and of
    the forward; a profiled serve step; then deepfm and autoint FULL
    served, checked on the CPU and timed.
+9. The compiled serving steps (``launch/steps.py``: a step captured
+   once into a CUDA graph over static buffers, then replayed): (a)
+   ``RAGPipeline.generate``'s steps on phase 3's container, each prompt
+   bucket's prefill replay (two prompts per graph) and the decode
+   replay equal to the eager static-shape step bit for bit (logits and
+   the whole cache), phase 3's ids, scores and token ids again through
+   the graphs, the eager steps' tokens equal, 28 flash launches per
+   prefill replay, and prefill and decode timed eager against replay
+   with the device's idle share; (b) llama3.2-3b's prefill_32k (batch
+   1), decode_32k (batch 8) and long_500k cells captured and replayed,
+   bit for bit against eager (a decode cell's cache by its written slot
+   and exact bit sums), timed, with peak memory; (c) the recsys cells
+   (dlrm-rm2 serve_p99, serve_bulk and retrieval_cand; deepfm and
+   autoint serve_p99 and serve_bulk) likewise, with a second input
+   through the same buffers and one top_k launch per retrieval replay.
 
 The second line from the end is a JSON ``kernels`` record; the last is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -771,11 +787,12 @@ def _serve(serve, argv):
     lines = out.splitlines()
     # the head (ingest, generator, path), the generation and metrics
     # lines, and the span breakdown table when the run was traced
-    gen_line = next(line for line in lines if line.startswith("generation:"))
+    gen_lines = [line for line in lines
+                 if line.startswith(("generation:", "generation graphs:"))]
     extra = [line for line in lines if line.startswith("index stats:")]
     trace_at = next((i for i, line in enumerate(lines)
                      if line.startswith("trace: ")), len(lines))
-    for line in lines[:5] + [gen_line, metrics] + extra + lines[trace_at:]:
+    for line in lines[:5] + gen_lines + [metrics] + extra + lines[trace_at:]:
         _log(f"    | {line}")
     _log(f"    ({time.perf_counter() - t0:.1f} s)")
     return results, tokens, flushes
@@ -1123,16 +1140,19 @@ def _time_flash(torch, fa_ops, fa_ref, l, runs):
 
 
 def _profile(torch, fn, wall_ms, label, mark="flash_fwd",
-             mark_name="flash kernel"):
-    """Device time by kernel over one call of ``fn`` (torch.profiler),
-    against the call's CUDA-event wall time ``wall_ms``; the kernels
-    whose name holds ``mark`` are summed as ``mark_name``."""
+             mark_name="flash kernel", calls=1):
+    """Device time by kernel over ``calls`` calls of ``fn``
+    (torch.profiler), against the CUDA-event wall time of one call
+    ``wall_ms``; the kernels whose name holds ``mark`` are summed as
+    ``mark_name``.  Times are per call.  Returns the device's idle
+    share, or None when no kernel time was recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -1141,11 +1161,11 @@ def _profile(torch, fn, wall_ms, label, mark="flash_fwd",
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
         if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
+            rows.append((dev_us / calls, ev.count // calls, ev.key))
     busy_ms = sum(r[0] for r in rows) / 1e3
     if busy_ms == 0:
         _log(f"  profiler, {label}: no kernel time recorded (not measured)")
-        return
+        return None
     rows.sort(reverse=True)
     marked_ms = sum(r[0] for r in rows if mark in r[2]) / 1e3
     _log(f"  profiler, {label}: kernels {busy_ms:.3f} ms of {wall_ms:.3f} ms "
@@ -1154,6 +1174,7 @@ def _profile(torch, fn, wall_ms, label, mark="flash_fwd",
     for dev_us, count, key in rows[:6]:
         _log(f"    {dev_us / 1e3:9.3f} ms {dev_us / 1e3 / busy_ms:6.1%} "
              f"x{count:<4d} {key[:80]}")
+    return 1 - busy_ms / wall_ms
 
 
 def phase_generation_timings(torch, T, model, cfg, fa_ops, fa_ref):
@@ -1689,6 +1710,373 @@ def phase_recsys(torch, np, bag_ops, bag_ref, tk_ops, tk_ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the compiled serving steps (CUDA graphs of launch/steps.py)
+# ---------------------------------------------------------------------------
+
+# the reference's LM cells (configs/shapes.py), cut only where one card
+# forces it: prefill_32k to batch 1 (each sequence's activations and
+# cache), decode_32k to batch 8 (128 sequences' cache is 481 GB);
+# long_500k whole when it fits, else its seq halved
+LM_CELLS = (("prefill_32k", {"batch": 1}), ("decode_32k", {"batch": 8}),
+            ("long_500k", {}))
+RECSYS_CELLS = (("dlrm-rm2", ("serve_p99", "serve_bulk", "retrieval_cand")),
+                ("deepfm", ("serve_p99", "serve_bulk")),
+                ("autoint", ("serve_p99", "serve_bulk")))
+DIGEST_CHUNK = 4_096  # cache slots summed at a time by _cache_digest
+
+
+def _clone(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _clone(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(torch, v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _same_bits(torch, a, b) -> bool:
+    """Tensors (in dicts, lists and tuples) equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_bits(torch, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_bits(torch, x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.contiguous().view(torch.uint8),
+            b.contiguous().view(torch.uint8)))
+    return a == b
+
+
+def _cache_digest(torch, caches) -> list[int]:
+    """Per layer and tensor, the exact sum of the cache's bit patterns
+    (as int16): a cache too large to copy is compared by these."""
+    sums = []
+    for layer in caches:
+        for name in ("k", "v"):
+            bits = layer[name].view(torch.int16)
+            acc = torch.zeros((), dtype=torch.int64, device=bits.device)
+            for lo in range(0, bits.shape[2], DIGEST_CHUNK):
+                acc += bits[:, :, lo:lo + DIGEST_CHUNK].sum(dtype=torch.int64)
+            sums.append(acc)
+    return torch.stack(sums).tolist()
+
+
+def _in_turns(torch, eager, replay, runs):
+    """CUDA-event medians, eager and replay in turns (eager, replay,
+    replay, eager); returns (eager ms, replay ms, both pairs)."""
+    e1 = _median_ms(torch, eager, runs)
+    r1 = _median_ms(torch, replay, runs)
+    r2 = _median_ms(torch, replay, runs)
+    e2 = _median_ms(torch, eager, runs)
+    return min(e1, e2), min(r1, r2), (e1, r1, r2, e2)
+
+
+def _prompt(rag, results, question):
+    """The prompt ``RAGPipeline.generate`` packs."""
+    from repro_torch.core.rag import text_to_tokens
+
+    prompt = rag._pack_context(results) + text_to_tokens(question,
+                                                         rag.cfg.vocab)
+    return prompt[-rag.max_context_tokens:] or [0]
+
+
+def _eager_tokens(torch, T, steps, model, cfg, gs, prompt, static):
+    """Greedy tokens, eagerly: through the static-shape steps into a cache
+    of its own (``static``), or through the unpadded ``T.prefill`` with
+    a cache of len(prompt) + MAX_NEW_TOKENS slots."""
+    n = len(prompt)
+    if static:
+        caches = T.init_cache(cfg, 1, gs.max_len, device="cuda")
+        bucket = gs.bucket(n)
+        tokens = torch.zeros((1, bucket), dtype=torch.int64, device="cuda")
+        tokens[0, :n] = torch.tensor(prompt)
+        logits, _, _ = steps.make_lm_prefill_step(cfg, gs.max_len)(
+            model, tokens, torch.tensor([n], dtype=torch.int32,
+                                        device="cuda"), caches)
+        nxt = int(torch.argmax(logits[0]))
+    else:
+        tokens = torch.tensor([prompt], dtype=torch.int64, device="cuda")
+        logits, caches, _ = T.prefill(model, tokens, cfg,
+                                      n + MAX_NEW_TOKENS)
+        nxt = int(torch.argmax(logits[0, -1]))
+    out = []
+    for _ in range(MAX_NEW_TOKENS):
+        out.append(nxt)
+        n += 1
+        logits, caches = T.decode_step(
+            model, caches, torch.tensor([[nxt]], device="cuda"),
+            torch.tensor([n], dtype=torch.int32, device="cuda"), cfg)
+        nxt = int(torch.argmax(logits[0, 0]))
+    return out
+
+
+def phase_compiled_generation(torch, T, steps, fa_ops, cfg, model, ctx):
+    """(a) ``RAGPipeline.generate``'s steps at the serving shape: each
+    prompt bucket's replay, two prompts through one graph, and the
+    decode replay, each bit for bit against the eager static-shape step
+    (logits and the whole cache); phase 3's queries retrieved again and
+    generated through the graphs (their ids, scores and token ids, and
+    the eager steps' tokens); flash launches per prefill replay; prefill
+    and decode timed eager against replay, with the device's idle share.
+    Returns the timings."""
+    from repro_torch.core.engine import QueryEngine
+    from repro_torch.core.ingest import KnowledgeBase
+    from repro_torch.core.rag import RAGPipeline
+
+    kb = KnowledgeBase.load(ctx["container"])
+    rag = RAGPipeline(kb, model, cfg, engine=QueryEngine(kb, device="cuda"))
+    gs = rag.generation_steps(MAX_NEW_TOKENS)
+    prefill = steps.make_lm_prefill_step(cfg, gs.max_len)
+    decode = steps.make_lm_decode_step(cfg)
+    eager_caches = T.init_cache(cfg, 1, gs.max_len, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def prompt_of(n, bucket):
+        tokens = torch.randint(0, cfg.vocab, (1, bucket), device="cuda",
+                               generator=gen)
+        tokens[:, n:] = 0
+        return tokens, torch.tensor([n], dtype=torch.int32, device="cuda")
+
+    buckets = sorted({gs.bucket(n) for n in range(1, gs.max_context + 1)})
+    for bucket in buckets:
+        step = gs.prefill(bucket)
+        for n in (bucket, bucket // 2 + 1):  # two prompts, one graph
+            tokens, length = prompt_of(n, bucket)
+            want = _clone(torch, prefill(model, tokens, length,
+                                         eager_caches)[0])
+            if not step.captured:
+                step.capture(tokens, length)
+            got = step(tokens, length)[0]
+            assert _same_bits(torch, got, want), (bucket, n, "logits")
+            assert _same_bits(torch, gs.caches, eager_caches), (bucket, n)
+    for i in range(2):  # two tokens through the decode graph
+        tok = torch.randint(0, cfg.vocab, (1, 1), device="cuda",
+                            generator=gen)
+        length = torch.tensor([buckets[-1] // 2 + 2 + i], dtype=torch.int32,
+                              device="cuda")
+        want = _clone(torch, decode(model, eager_caches, tok, length)[0])
+        if not gs.decode.captured:
+            gs.decode.capture(tok, length)
+        got = gs.decode(tok, length)[0]
+        assert _same_bits(torch, got, want), ("decode", i)
+        assert _same_bits(torch, gs.caches, eager_caches), ("decode", i)
+    _log(f"  (a) prompt buckets {buckets}: each replay equals the eager "
+         "static-shape prefill bit for bit (logits and the whole "
+         f"{gs.max_len}-slot cache), two prompts per graph; the decode "
+         "replay likewise for two tokens; "
+         f"{gs.captures} graphs captured in {gs.capture_s:.2f} s")
+
+    # phase 3's requests again: retrieval, then generation through graphs
+    queries = ctx["queries"][:2] + ctx["queries"][-2:]
+    served = rag.engine.query_batch(queries, k=TOP_K)
+    unpadded_same = 0
+    for q, results in zip(queries, served):
+        assert [(r.doc_id, r.boosted, f"{r.score:.4f}") for r in results] \
+            == ctx["flat"][q], q
+        out = rag.generate(q, results, MAX_NEW_TOKENS)
+        prompt = _prompt(rag, results, q)
+        assert out.token_ids == ctx["tokens"][q], (q, out.token_ids)
+        eager = _eager_tokens(torch, T, steps, model, cfg, gs, prompt, True)
+        assert out.token_ids == eager, (q, out.token_ids, eager)
+        unpadded_same += out.token_ids == _eager_tokens(
+            torch, T, steps, model, cfg, gs, prompt, False)
+    _log(f"  (a) {len(queries)} of phase 3's requests: ids and scores equal "
+         f"phase 3's; {MAX_NEW_TOKENS} greedy tokens through the graphs equal "
+         "phase 3's and the eager static-shape steps'; the unpadded eager "
+         f"path (T.prefill over the prompt alone) gives the same tokens for "
+         f"{unpadded_same} of {len(queries)}")
+
+    # flash launches per prefill replay, then timings at the 512 bucket
+    bucket = buckets[-1]
+    step = gs.prefill(bucket)
+    tokens, plen = prompt_of(bucket, bucket)
+    reps = 5
+    fa_ops.reset_counts()
+    for _ in range(reps):
+        step(tokens, plen)
+    torch.cuda.synchronize()
+    assert fa_ops.counts == {"launches": N_LAYERS * reps, "plain": 0}, \
+        fa_ops.counts
+    _log(f"  (a) flash launches over {reps} prefill replays: "
+         f"{fa_ops.counts['launches']} (= {N_LAYERS} a replay), plain 0")
+    tok = torch.randint(0, cfg.vocab, (1, 1), device="cuda", generator=gen)
+    dlen = plen + 1
+    out = {}
+    for name, eager, replay, runs in (
+            ("prefill", lambda: prefill(model, tokens, plen, eager_caches),
+             lambda: step(tokens, plen), 10),
+            ("decode", lambda: decode(model, eager_caches, tok, dlen),
+             lambda: gs.decode(tok, dlen), 20)):
+        eager_ms, replay_ms, pairs = _in_turns(torch, eager, replay, runs)
+        _log(f"  (a) {name} at the {bucket}-token bucket: eager "
+             f"{eager_ms:.3f} ms, replay {replay_ms:.3f} ms (CUDA events, "
+             f"median of {runs}, in turns "
+             f"{', '.join(f'{t:.3f}' for t in pairs)})")
+        out[name] = (eager_ms, replay_ms,
+                     _profile(torch, eager, eager_ms, f"eager {name} step",
+                              calls=5),
+                     _profile(torch, replay, replay_ms,
+                              f"replayed {name} step", calls=5))
+    return out
+
+
+def _lm_cell_fits(torch, cfg, b, s):
+    """Whether a decode cell of batch b and s slots fits the free memory:
+    the weights, the cache, and twice (the eager pass's pool and the
+    graph's) the plain decode attention's largest transient, one
+    layer's K (or V) in f32 with its copy broadcast over the G query
+    heads of a group (decode_32k at batch 8: reckoned 45.08 GB, and
+    45.16 GB measured by phase 9 on an H100)."""
+    elems = b * cfg.n_kv_heads * s * cfg.head_dim  # one layer's K
+    group = cfg.n_heads // cfg.n_kv_heads
+    need = (2 * cfg.param_count() + 2 * 2 * cfg.n_layers * elems
+            + 2 * (1 + group) * 4 * elems)
+    free = torch.cuda.mem_get_info()[0]
+    _log(f"  {s:,}-slot cache at batch {b}: needs about {need / 1e9:.1f} GB,"
+         f" {free / 1e9:.1f} GB free")
+    return need * 1.02 < free
+
+
+def phase_compiled_lm_cells(torch, steps, fa_ops, cfg):
+    """(b) llama3.2-3b's prefill_32k, decode_32k and long_500k cells:
+    captured, replayed, bit for bit against the eager step, flash
+    launches per prefill replay, eager and replay timed, peak memory.
+    Returns {shape: (eager ms, replay ms, eager idle, replay idle)}."""
+    from repro_torch.configs.shapes import LM_SHAPES
+
+    out = {}
+    for shape_id, cuts in LM_CELLS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kind = LM_SHAPES[shape_id].kind
+        if kind == "lm_decode":
+            m = LM_SHAPES[shape_id].meta
+            b, s = cuts.get("batch", m["batch"]), m["seq"]
+            while not _lm_cell_fits(torch, cfg, b, s):
+                s //= 2
+            if s != m["seq"]:
+                cuts = {**cuts, "seq": s}
+        t0 = time.perf_counter()
+        cell = steps.build_cell(ARCH, shape_id, device="cuda", **cuts)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        step = cell.fn
+        if kind == "lm_prefill":
+            _, tokens, _, caches = cell.args
+            want = _clone(torch, step.fn(*cell.args))
+            step.capture()
+            fa_ops.reset_counts()
+            got = step()
+            torch.cuda.synchronize()
+            assert fa_ops.counts == {"launches": N_LAYERS, "plain": 0}, \
+                fa_ops.counts
+            assert _same_bits(torch, got[0], want[0]), shape_id
+            assert _same_bits(torch, caches, want[1]), shape_id
+            del want
+            checked = (f"logits and the whole cache bit for bit; flash "
+                       f"launches {N_LAYERS} a replay, plain 0")
+            what = f"prefill of {tokens.shape[1]:,} tokens"
+        else:
+            _, caches, tokens, lengths = cell.args
+            slot = cell.meta["max_len"] - 1  # the slot the step writes
+
+            def written():
+                return [{n: c[n][:, :, slot].clone() for n in ("k", "v")}
+                        for c in caches]
+
+            before = written()
+
+            def restore():
+                for c, w in zip(caches, before):
+                    for n in ("k", "v"):
+                        c[n][:, :, slot] = w[n]
+
+            want = step.fn(*cell.args)[0].clone()
+            want_slot, want_digest = written(), _cache_digest(torch, caches)
+            restore()
+            step.capture()
+            restore()
+            got = step()[0]
+            assert _same_bits(torch, got, want), shape_id
+            assert _same_bits(torch, written(), want_slot), shape_id
+            assert _cache_digest(torch, caches) == want_digest, shape_id
+            checked = ("logits and the written slot bit for bit, the whole "
+                       "cache's bit sums equal")
+            what = (f"decode at batch {tokens.shape[0]}, "
+                    f"{cell.meta['max_len']:,}-slot cache")
+        runs = 3 if kind == "lm_prefill" else 5
+        eager_ms, replay_ms, pairs = _in_turns(
+            torch, lambda: step.fn(*cell.args), step, runs)
+        idle = (_profile(torch, lambda: step.fn(*cell.args), eager_ms,
+                         f"eager {shape_id}"),
+                _profile(torch, step, replay_ms, f"replayed {shape_id}"))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[shape_id] = (eager_ms, replay_ms) + idle
+        _log(f"  (b) {shape_id} ({what}; reduced: "
+             f"{cell.meta['reduced'] or 'none'}; built in {build_s:.1f} s, "
+             f"captured in {step.capture_s:.2f} s): {checked}; eager "
+             f"{eager_ms:.3f} ms, replay {replay_ms:.3f} ms (CUDA events, "
+             f"median of {runs}, in turns "
+             f"{', '.join(f'{t:.3f}' for t in pairs)}); peak "
+             f"{peak:.2f} GB")
+        del cell, step, caches, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_compiled_recsys_cells(torch, steps, tk_ops):
+    """(c) the recsys serve and retrieval cells at full width: captured,
+    replayed, bit for bit against the eager step, a second input
+    through the same buffers, top_k launches per retrieval replay,
+    eager and replay timed, peak memory.  Returns {(arch, shape):
+    (eager ms, replay ms, eager idle, replay idle)}."""
+    out = {}
+    for arch, shape_ids in RECSYS_CELLS:
+        for shape_id in shape_ids:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            cell = steps.build_cell(arch, shape_id, device="cuda")
+            step = cell.fn
+            params, inputs = cell.args
+            retrieval = cell.meta["kind"] == "recsys_retrieval"
+            want = _clone(torch, step.fn(*cell.args))
+            step.capture()
+            tk_ops.reset_counts()
+            got = step()
+            torch.cuda.synchronize()
+            assert tk_ops.counts["launches"] == int(retrieval), tk_ops.counts
+            assert _same_bits(torch, got, want), (arch, shape_id)
+            other = {k: torch.roll(v, 1, 0) if isinstance(v, torch.Tensor)
+                     else v for k, v in inputs.items()}
+            want = _clone(torch, step.fn(params, other))
+            assert _same_bits(torch, step(params, other), want), \
+                (arch, shape_id, "second input")
+            runs = 20 if shape_id != "serve_bulk" else 5
+            eager_ms, replay_ms, pairs = _in_turns(
+                torch, lambda: step.fn(*cell.args), step, runs)
+            idle = (None, None)
+            if shape_id != "serve_bulk":
+                idle = (_profile(torch, lambda: step.fn(*cell.args),
+                                 eager_ms, f"eager {arch} {shape_id}",
+                                 "gather", "row gathers", calls=10),
+                        _profile(torch, step, replay_ms,
+                                 f"replayed {arch} {shape_id}", "gather",
+                                 "row gathers", calls=10))
+            out[(arch, shape_id)] = (eager_ms, replay_ms) + idle
+            _log(f"  (c) {arch} {shape_id}: replay == eager bit for bit, a "
+                 f"second input too; top_k launches a replay "
+                 f"{int(retrieval)}; eager {eager_ms:.4f} ms, replay "
+                 f"{replay_ms:.4f} ms (median of {runs}, in turns "
+                 f"{', '.join(f'{t:.4f}' for t in pairs)}); captured in "
+                 f"{step.capture_s:.2f} s; peak "
+                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            del cell, step, params, inputs, want, got, other
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1716,6 +2104,7 @@ def main() -> int:
     from repro_torch.kernels.hsf_score import ops, ref
     from repro_torch.kernels.topk import ops as tk_ops
     from repro_torch.kernels.topk import ref as tk_ref
+    from repro_torch.launch import steps
     from repro_torch.models import transformer as T
     from repro_torch.models.recsys import base as rbase
     from repro_torch.models.recsys import embedding as emb
@@ -1774,11 +2163,18 @@ def main() -> int:
         _log("phase 7: the IVF index plane at 65,536 docs")
         score_launches, topk_launches = phase_ivf(torch, np, ops, tk_ops,
                                                   ctx, tmp)
-        del ctx
-    _log("phase 8: the recsys plane at full width (dlrm-rm2, deepfm, "
-         "autoint)")
-    bag_launches, bag_timing, _ = phase_recsys(torch, np, bag_ops, bag_ref,
-                                               tk_ops, tk_ref)
+        _log("phase 8: the recsys plane at full width (dlrm-rm2, deepfm, "
+             "autoint)")
+        bag_launches, bag_timing, _ = phase_recsys(torch, np, bag_ops,
+                                                   bag_ref, tk_ops, tk_ref)
+
+        _log("phase 9: compiled serving steps (CUDA graphs, replayed)")
+        model = _served_model(torch, T, cfg)
+        phase_compiled_generation(torch, T, steps, fa_ops, cfg, model, ctx)
+        del model, ctx
+        torch.cuda.empty_cache()
+    phase_compiled_lm_cells(torch, steps, fa_ops, cfg)
+    phase_compiled_recsys_cells(torch, steps, tk_ops)
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     _log(f"card: {card}")  # again, near the end, for readers of the tail
 

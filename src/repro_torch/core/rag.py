@@ -6,7 +6,12 @@ generation is the port's own LM serving path (prefill through the
 flash-attention kernel on the card, then greedy decode with KV caches).
 Retrieval is batched (``answer_batch`` scores every question in one
 ``QueryEngine.query_batch`` dispatch); generation runs per request,
-since prompt lengths differ.
+since prompt lengths differ.  It runs on static shapes
+(``launch/steps.GenerationSteps``): the prompt is right-padded to a
+power-of-two bucket, prefilled into one cache of ``max_context_tokens +
+max_new_tokens`` slots and decoded there, so on the card each step is a
+captured CUDA graph, replayed (captured at its first use, outside the
+timings).  On the CPU the same steps run eagerly.
 
 Tokenization for the LM uses the retrieval plane's stable hashing (word
 → fnv1a64 mod vocab), as the reference does.
@@ -22,6 +27,7 @@ from repro_torch.core import hashing
 from repro_torch.core.engine import QueryEngine, RetrievalResult
 from repro_torch.core.ingest import KnowledgeBase
 from repro_torch.core.tokenizer import tokenize
+from repro_torch.launch.steps import GenerationSteps
 from repro_torch.models import transformer as T
 
 
@@ -35,7 +41,8 @@ class RAGOutput:
     token_ids: list[int]
     prompt_len: int
     # host-clock seconds of the prefill (through the first token's read
-    # back) and of the decode steps; each ends in a device → host read
+    # back) and of the decode steps; each ends in a device → host read.
+    # Graph captures made for this request are not in them
     prefill_s: float = 0.0
     decode_s: float = 0.0
 
@@ -57,6 +64,10 @@ class RAGPipeline:
     # runtime.submit() and use generate() with the served results, as
     # launch/serve.py does.
     engine: QueryEngine | None = field(default=None, repr=False)
+    # the static-shape steps of the last horizon asked for (one request
+    # at a time: generate() is not for concurrent callers)
+    steps: GenerationSteps | None = field(default=None, init=False,
+                                          repr=False)
 
     def __post_init__(self):
         if self.engine is None:
@@ -102,6 +113,17 @@ class RAGPipeline:
             for question, results in zip(questions, retrieved)
         ]
 
+    def generation_steps(self, max_new_tokens: int) -> GenerationSteps:
+        """The steps for a ``max_new_tokens`` horizon (made anew, with
+        their cache and graphs, when the horizon changes)."""
+        horizon = self.max_context_tokens + max_new_tokens
+        if self.steps is None or self.steps.max_len != horizon:
+            self.steps = None  # frees the old cache and graphs first
+            self.steps = GenerationSteps(self.model, self.cfg,
+                                         self.max_context_tokens,
+                                         max_new_tokens)
+        return self.steps
+
     def generate(self, question: str, results: list[RetrievalResult],
                  max_new_tokens: int) -> RAGOutput:
         """Generation stage alone: pack pre-retrieved context, prefill
@@ -111,25 +133,35 @@ class RAGPipeline:
             question, self.cfg.vocab
         )
         prompt = prompt[-self.max_context_tokens:] or [0]
-        max_len = len(prompt) + max_new_tokens
-        dev = self.device
+        n = len(prompt)
+        steps = self.generation_steps(max_new_tokens)
+        bucket = steps.bucket(n)
+        prefill = steps.prefill(bucket)
 
+        tokens = torch.tensor([prompt + [0] * (bucket - n)],
+                              dtype=torch.int64)
+        length = torch.tensor([n], dtype=torch.int32)
+        if not prefill.captured:
+            prefill.capture(tokens, length)
         t0 = time.perf_counter()
-        tokens = torch.tensor([prompt], dtype=torch.int64, device=dev)
-        logits, caches, lengths = T.prefill(self.model, tokens, self.cfg,
-                                            max_len, backend="auto")
-        next_tok = int(torch.argmax(logits[0, -1]))
-        t1 = time.perf_counter()
+        logits, _, _ = prefill(tokens, length)
+        next_tok = int(torch.argmax(logits[0]))
+        prefill_s = time.perf_counter() - t0
         out: list[int] = []
+        decode_s = 0.0
         for _ in range(max_new_tokens):
             out.append(next_tok)
-            lengths = lengths + 1
-            logits, caches = T.decode_step(
-                self.model, caches,
-                torch.tensor([[next_tok]], dtype=torch.int64, device=dev),
-                lengths, self.cfg,
-            )
+            n += 1
+            tok = torch.tensor([[next_tok]], dtype=torch.int64)
+            length = torch.tensor([n], dtype=torch.int32)
+            if not steps.decode.captured:
+                # captured on this step's own inputs: the warm-up writes
+                # the cache slot the step writes, with the same values
+                steps.decode.capture(tok, length)
+            t1 = time.perf_counter()
+            logits, _ = steps.decode(tok, length)
             next_tok = int(torch.argmax(logits[0, 0]))
+            decode_s += time.perf_counter() - t1
         return RAGOutput(retrieved=results, token_ids=out,
-                         prompt_len=len(prompt), prefill_s=t1 - t0,
-                         decode_s=time.perf_counter() - t1)
+                         prompt_len=len(prompt), prefill_s=prefill_s,
+                         decode_s=decode_s)

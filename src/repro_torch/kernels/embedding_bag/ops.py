@@ -24,6 +24,7 @@ import threading
 
 import torch
 
+from repro_torch.kernels import counters
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -31,6 +32,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _counts_lock = threading.Lock()
 # launches: kernel launches; plain: calls on CPU tensors (the plain version)
 counts = {"launches": 0, "plain": 0}
+counters.register("embedding_bag", counts, _counts_lock)
 
 
 def reset_counts() -> None:
@@ -40,8 +42,7 @@ def reset_counts() -> None:
 
 
 def _bump(key: str) -> None:
-    with _counts_lock:
-        counts[key] += 1
+    counters.bump("embedding_bag", key)
 
 
 @functools.cache

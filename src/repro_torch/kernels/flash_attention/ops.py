@@ -26,6 +26,7 @@ import threading
 
 import torch
 
+from repro_torch.kernels import counters
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -35,6 +36,7 @@ _INT_MAX = 2**31 - 1
 _counts_lock = threading.Lock()
 # launches: kernel launches; plain: calls served by ref.py (CPU tensors)
 counts = {"launches": 0, "plain": 0}
+counters.register("flash_attention", counts, _counts_lock)
 
 
 def reset_counts() -> None:
@@ -44,8 +46,7 @@ def reset_counts() -> None:
 
 
 def _bump(key: str) -> None:
-    with _counts_lock:
-        counts[key] += 1
+    counters.bump("flash_attention", key)
 
 
 @functools.cache

@@ -24,6 +24,7 @@ import threading
 
 import torch
 
+from repro_torch.kernels import counters
 from repro_torch.kernels.hsf_score.ref import (
     hsf_score_ref,
     hsf_score_topk_ref,
@@ -40,6 +41,8 @@ counts = {"launches": 0, "unfused": 0}
 # launches of the single-query kernel (``hsf_score``)
 single_counts = {"launches": 0}
 _SINGLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+counters.register("hsf_score", counts, _counts_lock)
+counters.register("hsf_score.single", single_counts, _counts_lock)
 
 
 def reset_counts() -> None:
@@ -49,9 +52,8 @@ def reset_counts() -> None:
                 table[key] = 0
 
 
-def _bump(key: str, table=counts) -> None:
-    with _counts_lock:
-        table[key] += 1
+def _bump(key: str, table: str = "hsf_score") -> None:
+    counters.bump(table, key)
 
 
 def pad_docs_for_kernel(doc_vecs, doc_sigs, block_docs: int = 512):
@@ -251,7 +253,7 @@ def _launch_single(doc_vecs, doc_sigs, query_vec, query_sig, alpha, beta):
         raise RuntimeError(
             "hsf_score launch failed: "
             f"{lib.hsf_score_error_string(err).decode()} (cudaError {err})")
-    _bump("launches", single_counts)
+    _bump("launches", "hsf_score.single")
     return out
 
 

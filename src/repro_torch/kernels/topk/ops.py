@@ -25,6 +25,7 @@ import threading
 
 import torch
 
+from repro_torch.kernels import counters
 from repro_torch.kernels.topk.ref import ID_SENTINEL, top_k_ref
 
 KPAD = 128  # widest k the kernel serves
@@ -32,6 +33,7 @@ KPAD = 128  # widest k the kernel serves
 _counts_lock = threading.Lock()
 # launches: kernel calls (the multi-launch path of one call counts once)
 counts = {"launches": 0}
+counters.register("topk", counts, _counts_lock)
 
 
 def reset_counts() -> None:
@@ -41,8 +43,7 @@ def reset_counts() -> None:
 
 
 def _bump(key: str) -> None:
-    with _counts_lock:
-        counts[key] += 1
+    counters.bump("topk", key)
 
 
 @functools.cache

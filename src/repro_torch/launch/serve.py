@@ -6,7 +6,9 @@ runtime (micro-batching scheduler → generation-pinned snapshot →
 QueryEngine — docs/ARCHITECTURE.md §7) and an LM, then serves requests:
 every query is ``submit()``-ed individually and the scheduler coalesces
 them into batched scoring dispatches; generation (pack → prefill →
-decode) runs per request on the resolved retrievals.  Prints each
+decode) runs per request on the resolved retrievals, each prefill and
+decode step a CUDA graph replayed on the card (captured at first use;
+the count and seconds of the captures are printed).  Prints each
 query's ranked documents and generated token ids, the generation times,
 and the serving metrics snapshot (p50/p99, QPS, batch occupancy, cache
 hit rate) at the end.
@@ -213,6 +215,13 @@ def main(argv=None):
     print(f"\n{len(futures)} requests in {dt * 1e3:.1f} ms")
     if gens:
         print(_generation_summary(gens, args.max_new_tokens))
+        steps = rag.steps
+        if steps.device.type == "cuda":
+            print(f"generation graphs: {steps.captures} captured "
+                  f"({len(steps.steps()) - 1} prompt buckets + decode) in "
+                  f"{steps.capture_s:.2f} s")
+        else:
+            print("generation graphs: none (the CPU runs the steps eagerly)")
     print(f"serving metrics: {runtime.metrics.format()}")
     if args.metrics:
         stats = runtime.index_stats()

@@ -1,29 +1,50 @@
-"""Step builders (the JAX package's ``launch/steps.py``, recsys serving).
+"""Step builders (the JAX package's ``launch/steps.py``, serving half).
 
-``make_recsys_step(arch_id, cfg, kind, device=None)`` returns the step
-function of one recsys shape kind on one device (the JAX package's
-step takes a mesh; the multi-device planes are ROADMAP Queue 1 item 8):
+The JAX package compiles each serving step into one program
+(``jax.jit``).  Here the counterpart is a CUDA graph: ``CapturedStep``
+captures a step once over static input buffers and then replays it, so
+the host issues one launch per step instead of every operator's.  On
+the CPU the same static-shape function runs eagerly.
 
-- ``recsys_serve``: ``step(params, batch)`` → logits [B];
-- ``recsys_retrieval``: ``step(params, batch)`` → the top 16 (values
-  f32, ids int32) of the candidate scores, positions
-  ``>= batch["n_real_candidates"]`` masked to -inf first, ordered
-  (score desc, id asc) by the port's top-k kernel (``jax.lax.top_k``'s
-  order; ``torch.topk`` has no tie rule on CUDA);
-- ``recsys_train`` raises: it needs the optimizers (ROADMAP Queue 1
-  item 10).
-
-A batch holds numpy arrays or tensors (``dense``, ``sparse_idx``;
-``query``, ``candidate_ids``, ``n_real_candidates``); the step moves
-them to its device.  The params must already be there.
+- ``make_lm_prefill_step(cfg, max_len)`` and ``make_lm_decode_step(cfg)``
+  are the JAX package's LM serving steps (its mesh argument is gone:
+  the multi-device planes are ROADMAP Queue 1 item 8).  Prefill takes a
+  right-padded prompt and the real lengths, and writes caches allocated
+  beforehand, so one graph serves every prompt of a length bucket.
+- ``GenerationSteps`` holds what ``core/rag.py`` generates with: one
+  static cache, one prefill step per power-of-two prompt bucket and one
+  decode step, each captured at first use.
+- ``make_recsys_step(arch_id, cfg, kind, device=None)`` returns the step
+  of one recsys shape kind: ``recsys_serve`` → logits [B];
+  ``recsys_retrieval`` → the top 16 (values f32, ids int32) of the
+  candidate scores, positions ``>= batch["n_real_candidates"]`` masked
+  to -inf first, ordered (score desc, id asc) by the port's top-k
+  kernel (``jax.lax.top_k``'s order; ``torch.topk`` has no tie rule on
+  CUDA); ``recsys_train`` raises (ROADMAP Queue 1 item 10).  A batch
+  holds numpy arrays or tensors (``dense``, ``sparse_idx``; ``query``,
+  ``candidate_ids``, ``n_real_candidates``); the step moves them to its
+  device.  The params must already be there.
+- ``build_cell(arch_id, shape_id, smoke=False, device=None, ...)``
+  assembles one (architecture × shape) cell with concrete inputs made
+  from a seed: ``Cell.fn`` is the captured step and ``Cell.args`` its
+  static tensors, so ``cell.fn(*cell.args)`` runs it.  LM prefill and
+  decode and recsys serve and retrieval are ported; the other kinds
+  raise, naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
+
+import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from repro_torch import configs
+from repro_torch.configs import shapes as shp
 from repro_torch.core.engine import resolve_device
+from repro_torch.kernels import counters
 from repro_torch.kernels.topk import ops as topk_ops
+from repro_torch.models import transformer as T
 from repro_torch.models.recsys import autoint as autoint_mod
 from repro_torch.models.recsys import deepfm as deepfm_mod
 from repro_torch.models.recsys import dlrm as dlrm_mod
@@ -35,7 +56,245 @@ RECSYS_MODULES = {
     "deepfm-smoke": deepfm_mod, "autoint-smoke": autoint_mod,
 }
 RETRIEVAL_TOP_K = 16
+# eager passes on a side stream before a capture, so that lazy set-up
+# (library handles, workspaces, the kernels' builds, cached offsets) is
+# done when the graph is captured
+WARMUP_RUNS = 2
+SMALLEST_BUCKET = 64
 
+_NOT_PORTED = {
+    "lm_train": "training needs the optimizers and the training substrate "
+                "of the PyTorch port (ROADMAP Queue 1 item 10)",
+    "recsys_train": "recsys_train needs the optimizers (optim/rowwise.py, "
+                    "AdamW) of the PyTorch port (ROADMAP Queue 1 item 10)",
+    "gnn_train": "the GNN cells come with ROADMAP Queue 1 item 11",
+    "gnn_train_sampled": "the GNN cells come with ROADMAP Queue 1 item 11",
+    "gnn_train_batched": "the GNN cells come with ROADMAP Queue 1 item 11",
+    "ragdb_retrieve": "the sharded retrieval cell needs "
+                      "build_sharded_retrieve, a multi-device plane "
+                      "(ROADMAP Queue 1 item 8)",
+}
+
+
+# ==========================================================================
+# capture and replay
+# ==========================================================================
+
+def _copy_into(static, new) -> None:
+    """Copy ``new`` into the static buffers ``static`` (the same nesting
+    of dicts, lists and tuples).  A tensor leaf takes a tensor or numpy
+    array of its shape; any other leaf must be the same object or equal,
+    because a captured graph cannot change it."""
+    if static is new:
+        return
+    if isinstance(static, torch.Tensor):
+        if isinstance(new, np.ndarray):
+            new = torch.from_numpy(new)
+        if not isinstance(new, torch.Tensor) or new.shape != static.shape:
+            raise ValueError(
+                f"a static input of shape {tuple(static.shape)} got "
+                f"{getattr(new, 'shape', type(new).__name__)}")
+        static.copy_(new)
+    elif isinstance(static, dict):
+        if set(static) != set(new):
+            raise ValueError(f"input keys {sorted(new)} differ from the "
+                             f"static {sorted(static)}")
+        for key in static:
+            _copy_into(static[key], new[key])
+    elif isinstance(static, (list, tuple)):
+        if len(static) != len(new):
+            raise ValueError(f"{len(new)} inputs for {len(static)} static")
+        for s, n in zip(static, new):
+            _copy_into(s, n)
+    elif static != new:
+        raise ValueError(f"a captured step's constant input {static!r} "
+                         f"cannot become {new!r}")
+
+
+class CapturedStep:
+    """``fn`` over static inputs, captured once into a CUDA graph.
+
+    ``static_inputs`` is the tuple of ``fn``'s arguments: tensors (in
+    dicts, lists or tuples) that stay at fixed addresses, and anything
+    else (a model, a Python number) that stays fixed.  A call copies
+    the inputs it is given into the static buffers (none given: they
+    are used as they stand) and returns ``fn``'s outputs.
+
+    On ``cuda`` the first call (or ``capture()``) warms ``fn`` up on a
+    side stream and captures one pass of it; every call then replays
+    the graph and returns the same output tensors, overwritten.  A
+    failed capture raises: the step never falls back to eager.  The
+    outputs, and every tensor the step allocates, come from the graph's
+    private memory pool, so a kernel's host-encoded operand addresses
+    (the TMA maps of the flash and HSF kernels) stay valid.  The kernel
+    wrappers count launches only while their Python runs: the warm-up
+    and capture passes are taken back out of the counts, and each
+    replay adds the captured pass's counts (``launches``) again.
+
+    On ``cpu`` each call runs ``fn`` eagerly on the static buffers.
+    Calls must not overlap (one thread at a time per step).
+    """
+
+    def __init__(self, fn, static_inputs: tuple, device=None):
+        self.fn = fn
+        self.inputs = tuple(static_inputs)
+        self.device = resolve_device(device)
+        self.graph = None
+        self.outputs = None
+        self.launches: dict[tuple[str, str], int] = {}
+        self.capture_s = 0.0
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    def capture(self, *inputs) -> None:
+        """Copy ``inputs`` in and capture now, if not yet captured (a
+        no-op on the CPU): set-up a caller keeps out of its timings."""
+        if inputs:
+            _copy_into(self.inputs, inputs)
+        if self.device.type != "cuda" or self.graph is not None:
+            return
+        t0 = time.perf_counter()
+        with torch.cuda.device(self.device), counters.recording() as setup:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_RUNS):
+                    self.fn(*self.inputs)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with counters.recording() as captured:
+                # other threads (a serving runtime's dispatches) may use
+                # the card meanwhile; only this thread must stay legal
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    outputs = self.fn(*self.inputs)
+            torch.cuda.synchronize()
+        counters.add(counters.tally(setup, times=-1))
+        self.launches = counters.tally(captured)
+        self.graph, self.outputs = graph, outputs
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, *inputs):
+        if inputs:
+            _copy_into(self.inputs, inputs)
+        if self.device.type != "cuda":
+            return self.fn(*self.inputs)
+        if self.graph is None:
+            self.capture()
+        self.graph.replay()
+        counters.add(self.launches)
+        return self.outputs
+
+
+# ==========================================================================
+# LM steps
+# ==========================================================================
+
+def make_lm_prefill_step(cfg: T.LMConfig, max_len: int,
+                         backend: str = "auto"):
+    """``step(model, tokens, lengths=None, caches=None)`` → (logits [B, V]
+    at each row's last real position, caches, lengths): the JAX
+    package's prefill step, whose ``logits[:, -1]`` this is when the
+    prompts are not padded.  tokens [B, L ≤ max_len] right-padded;
+    lengths [B] int32 the real lengths (default L); caches from
+    ``T.init_cache(cfg, B, max_len)``, written in place (default: fresh
+    ones)."""
+
+    def step_fn(model, tokens, lengths=None, caches=None):
+        b, l = tokens.shape
+        if l > max_len:
+            raise ValueError(f"{l} tokens exceed max_len {max_len}")
+        if lengths is None:
+            lengths = torch.full((b,), l, dtype=torch.int32,
+                                 device=tokens.device)
+        if caches is None:
+            caches = T.init_cache(cfg, b, max_len, device=tokens.device)
+        return T.prefill_static(model, tokens, lengths, caches, cfg, backend)
+
+    return step_fn
+
+
+def make_lm_decode_step(cfg: T.LMConfig, backend: str = "auto"):
+    """``step(model, caches, tokens, lengths)`` → (logits [B, 1, V],
+    caches): one token per row, lengths [B] = cache fill including it;
+    the caches are written in place."""
+
+    def step_fn(model, caches, tokens, lengths):
+        return T.decode_step(model, caches, tokens, lengths, cfg, backend)
+
+    return step_fn
+
+
+def prompt_bucket(n: int, max_context: int) -> int:
+    """The padded length a prompt of ``n`` tokens is prefilled at: the
+    smallest power of two from 64 that holds it, at most
+    ``max_context`` (which must hold it)."""
+    if not 1 <= n <= max_context:
+        raise ValueError(f"a prompt of {n} tokens, context {max_context}")
+    bucket = SMALLEST_BUCKET
+    while bucket < n:
+        bucket *= 2
+    return min(bucket, max_context)
+
+
+class GenerationSteps:
+    """Batch-1 greedy generation on static shapes: one cache of
+    ``max_context + max_new_tokens`` slots, a prefill step per prompt
+    bucket (``prompt_bucket``; 64, 128, 256 and 512 at a 512-token
+    context) and one decode step, each a ``CapturedStep`` captured at
+    its first use.  All steps write the same cache, so one request at a
+    time."""
+
+    def __init__(self, model: T.LM, cfg: T.LMConfig, max_context: int,
+                 max_new_tokens: int):
+        self.model, self.cfg = model, cfg
+        self.max_context = max_context
+        self.max_len = max_context + max_new_tokens
+        dev = self.device = model.device
+        caches = self.caches = T.init_cache(cfg, 1, self.max_len, device=dev)
+        prefill = make_lm_prefill_step(cfg, self.max_len)
+        decode = make_lm_decode_step(cfg)
+        self._prefill_fn = lambda tokens, lengths: prefill(
+            model, tokens, lengths, caches)
+        self._prefill: dict[int, CapturedStep] = {}
+        self.decode = CapturedStep(
+            lambda tokens, lengths: decode(model, caches, tokens, lengths),
+            (torch.zeros((1, 1), dtype=torch.int64, device=dev),
+             torch.ones((1,), dtype=torch.int32, device=dev)), dev)
+
+    def bucket(self, n: int) -> int:
+        return prompt_bucket(n, self.max_context)
+
+    def prefill(self, bucket: int) -> CapturedStep:
+        """The step of one bucket: ``step(tokens [1, bucket] int64,
+        lengths [1] int32)`` → (logits [1, V], caches, lengths).  The
+        decode step is ``decode(tokens [1, 1] int64, lengths [1] int32)``
+        → (logits [1, 1, V], caches)."""
+        if bucket not in self._prefill:
+            dev = self.device
+            self._prefill[bucket] = CapturedStep(
+                self._prefill_fn,
+                (torch.zeros((1, bucket), dtype=torch.int64, device=dev),
+                 torch.ones((1,), dtype=torch.int32, device=dev)), dev)
+        return self._prefill[bucket]
+
+    def steps(self) -> list[CapturedStep]:
+        return [*self._prefill.values(), self.decode]
+
+    @property
+    def captures(self) -> int:
+        return sum(s.captured for s in self.steps())
+
+    @property
+    def capture_s(self) -> float:
+        return sum(s.capture_s for s in self.steps())
+
+
+# ==========================================================================
+# recsys steps
+# ==========================================================================
 
 def _on(x, device):
     if x is None:
@@ -74,8 +333,147 @@ def make_recsys_step(arch_id: str, cfg, kind: str, device=None):
         return retrieve
 
     if kind == "recsys_train":
-        raise NotImplementedError(
-            "recsys_train needs the optimizers (optim/rowwise.py, AdamW) "
-            "of the PyTorch port; it comes with ROADMAP Queue 1 item 10 "
-            "(training and generation substrate)")
+        raise NotImplementedError(_NOT_PORTED["recsys_train"])
     raise ValueError(f"unknown recsys step kind {kind!r}")
+
+
+# ==========================================================================
+# cells
+# ==========================================================================
+
+@dataclass(frozen=True)
+class Cell:
+    """One (architecture × shape) step with its concrete inputs:
+    ``fn(*args)`` runs it (a ``CapturedStep`` over ``args``).
+    ``meta["reduced"]`` lists each cut from the reference's shape."""
+    arch_id: str
+    shape_id: str
+    fn: CapturedStep
+    args: tuple
+    meta: dict
+
+
+def _sizes(spec: shp.ShapeSpec, batch: int | None, seq: int | None):
+    """(batch, seq or None, cuts) with each cut from the spec listed."""
+    m = spec.meta
+    b = m["batch"] if batch is None else batch
+    s = m.get("seq") if seq is None else seq
+    if seq is not None and "seq" not in m:
+        raise ValueError(f"shape {spec.shape_id} has no seq to cut")
+    cuts = [f"{name} {m[name]} -> {v}" for name, v in (("batch", b),
+                                                       ("seq", s))
+            if name in m and v != m[name]]
+    return b, s, cuts
+
+
+def build_lm_prefill_cell(arch_id, cfg: T.LMConfig, spec: shp.ShapeSpec,
+                          device, batch=None, seq=None, seed=0) -> Cell:
+    """Weights and tokens from ``seed``; every prompt is ``seq`` real
+    tokens long."""
+    b, s, cuts = _sizes(spec, batch, seq)
+    gen = torch.Generator(device).manual_seed(seed)
+    model = T.init(cfg, gen, device)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device=device)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=device)
+    caches = T.init_cache(cfg, b, s, device=device)
+    args = (model, tokens, lengths, caches)
+    fn = CapturedStep(make_lm_prefill_step(cfg, s), args, device)
+    return Cell(arch_id, spec.shape_id, fn, args,
+                {"kind": "lm_prefill", "max_len": s, "reduced": cuts})
+
+
+def _fill_cache(caches: list[dict], gen: torch.Generator) -> None:
+    """Random N(0, 1) keys and values, in place, in the cache's dtype."""
+    for layer in caches:
+        for t in layer.values():
+            t.normal_(generator=gen)
+
+
+def build_lm_decode_cell(arch_id, cfg: T.LMConfig, spec: shp.ShapeSpec,
+                         device, batch=None, seq=None, seed=0) -> Cell:
+    """Weights, a full cache of ``seq`` slots (``lengths = seq``: the
+    step's token takes the last slot, and every slot is read) and the
+    tokens, from ``seed``."""
+    b, s, cuts = _sizes(spec, batch, seq)
+    gen = torch.Generator(device).manual_seed(seed)
+    model = T.init(cfg, gen, device)
+    caches = T.init_cache(cfg, b, s, device=device)
+    _fill_cache(caches, gen)
+    tokens = torch.randint(0, cfg.vocab, (b, 1), generator=gen,
+                           device=device)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=device)
+    args = (model, caches, tokens, lengths)
+    fn = CapturedStep(make_lm_decode_step(cfg), args, device)
+    return Cell(arch_id, spec.shape_id, fn, args,
+                {"kind": "lm_decode", "max_len": s, "reduced": cuts})
+
+
+def _field_ids(gen, vocab_sizes, rows: int, device) -> torch.Tensor:
+    """int32 [rows, F]: column f uniform over field f's vocabulary."""
+    return torch.stack([torch.randint(0, v, (rows,), generator=gen,
+                                      device=device, dtype=torch.int32)
+                        for v in vocab_sizes], dim=1)
+
+
+def build_recsys_cell(arch_id, cfg, spec: shp.ShapeSpec, device,
+                      batch=None, seed=0) -> Cell:
+    """Weights (the arch's ``init``) and a batch from ``seed``.  The
+    retrieval cell scores ``pad_candidates`` ids of field 0, of which the
+    first ``n_candidates`` (1,000,000) are real: the step's mask is a
+    constant of the graph, as the JAX package's cell fixes it."""
+    if spec.kind not in ("recsys_serve", "recsys_retrieval"):
+        raise NotImplementedError(_NOT_PORTED[spec.kind])
+    m = spec.meta
+    gen = torch.Generator(device).manual_seed(seed)
+    params = RECSYS_MODULES[arch_id].init(cfg, gen, device)
+    step = make_recsys_step(arch_id, cfg, spec.kind, device)
+    if spec.kind == "recsys_retrieval":
+        if batch is not None:
+            raise ValueError("the retrieval cell has no batch to cut")
+        cuts = []
+        n_pad, n_real = m["pad_candidates"], m["n_candidates"]
+        cand = torch.zeros((n_pad,), dtype=torch.int32, device=device)
+        cand[:n_real] = torch.randint(0, cfg.vocab_sizes[0], (n_real,),
+                                      generator=gen, device=device,
+                                      dtype=torch.int32)
+        query = (torch.randn((1, cfg.n_dense), generator=gen, device=device)
+                 if cfg.n_dense
+                 else _field_ids(gen, cfg.vocab_sizes, 1, device))
+        inputs = {"query": query, "candidate_ids": cand,
+                  "n_real_candidates": n_real}
+    else:
+        b, _, cuts = _sizes(spec, batch, None)
+        inputs = {"sparse_idx": _field_ids(gen, cfg.vocab_sizes, b, device)}
+        if cfg.n_dense:
+            inputs["dense"] = torch.randn((b, cfg.n_dense), generator=gen,
+                                          device=device)
+    args = (params, inputs)
+    return Cell(arch_id, spec.shape_id, CapturedStep(step, args, device),
+                args, {"kind": spec.kind, "reduced": cuts})
+
+
+def build_cell(arch_id: str, shape_id: str, smoke: bool = False, device=None,
+               *, batch: int | None = None, seq: int | None = None,
+               seed: int = 0) -> Cell:
+    """The cell of ``arch_id`` (its SMOKE config with ``smoke``) at
+    ``shape_id``, on ``device`` (cuda unless the CPU is asked for).
+    ``batch`` and ``seq`` cut the reference's shape, and the cell's
+    ``meta["reduced"]`` lists each cut."""
+    family = configs.ARCHS[arch_id].family
+    spec = shp.shapes_for_family(family)[shape_id]
+    if spec.kind in _NOT_PORTED:
+        raise NotImplementedError(f"{arch_id} {shape_id}: "
+                                  f"{_NOT_PORTED[spec.kind]}")
+    arch = configs.get(arch_id)
+    cfg = arch.smoke_config if smoke else arch.config
+    device = resolve_device(device)
+    if spec.kind == "lm_prefill":
+        return build_lm_prefill_cell(arch_id, cfg, spec, device, batch, seq,
+                                     seed)
+    if spec.kind == "lm_decode":
+        return build_lm_decode_cell(arch_id, cfg, spec, device, batch, seq,
+                                    seed)
+    if seq is not None:
+        raise ValueError(f"shape {shape_id} has no seq to cut")
+    return build_recsys_cell(arch_id, cfg, spec, device, batch, seed)

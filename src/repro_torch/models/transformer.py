@@ -20,7 +20,10 @@ KV caches: a list with one ``{"k", "v"}`` dict per layer.  Global
 layers cache the full horizon; sliding-window layers cache a ring buffer
 of exactly ``window`` slots (position p lives in slot p mod W; slot
 validity is recomputed from the current length).  ``decode_step``
-writes its token's slot in place.
+writes its token's slot in place.  ``prefill_static`` is ``prefill``
+over a right-padded prompt into caches allocated beforehand, so that
+prefill and decode both run on fixed shapes and buffers, which a CUDA
+graph can capture (``launch/steps.py``).
 """
 from __future__ import annotations
 
@@ -437,12 +440,37 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
     ]
 
 
-def _fill_cache_from_seq(k_seq, n_slots: int, length: int):
-    """The last n_slots entries of k_seq [B, H, L, D] in ring order
-    (slot = p mod n_slots)."""
-    l = k_seq.shape[2]
-    p = _ring_slot_positions(n_slots, torch.tensor(length))
-    return k_seq.index_select(2, p.clamp(0, l - 1).to(k_seq.device))
+def _fill_cache_from_seq(k_seq, n_slots: int, length):
+    """The ring cache (slot = p mod n_slots) of k_seq [B, H, L, D] whose
+    first ``length`` positions are real: an int, or a [B] tensor on
+    k_seq's device (a right-padded batch).  Slot s holds the largest
+    real p ≡ s; a slot no real position reaches holds position 0, which
+    decode masks.  Nothing is copied from the host."""
+    b, h, l, d = k_seq.shape
+    if not isinstance(length, torch.Tensor):
+        length = torch.full((b,), length, dtype=torch.int64,
+                            device=k_seq.device)
+    p = _ring_slot_positions(n_slots, length).clamp(0, l - 1)  # [B, S]
+    return k_seq.gather(2, p[:, None, :, None].expand(b, h, n_slots, d))
+
+
+def _prefill_layers(model: LM, tokens, lengths, caches: list[dict],
+                    cfg: LMConfig, backend: str):
+    """The prompt tokens [B, L] through every layer, each layer's keys
+    and values written into its cache in place (a ring cache up to the
+    real ``lengths``); returns the last layer's output [B, L, d]."""
+    b, l = tokens.shape
+    positions = _positions(b, l, tokens.device)
+    x = _embed(model, tokens, cfg)
+    for lp, cache in zip(model.layers, caches):
+        x, k, v = _layer_full(lp, x, cfg, positions, backend)
+        n_slots = cache["k"].shape[2]
+        for name, seq in (("k", k), ("v", v)):
+            if n_slots >= l:
+                cache[name][:, :, :l] = seq
+            else:
+                cache[name].copy_(_fill_cache_from_seq(seq, n_slots, lengths))
+    return x
 
 
 def prefill(model: LM, tokens, cfg: LMConfig | None = None,
@@ -451,21 +479,29 @@ def prefill(model: LM, tokens, cfg: LMConfig | None = None,
     cfg = model.cfg if cfg is None else cfg
     b, l = tokens.shape
     max_len = l if max_len is None else max_len
-    positions = _positions(b, l, tokens.device)
-    x = _embed(model, tokens, cfg)
-    caches = []
-    for lp in model.layers:
-        x, k, v = _layer_full(lp, x, cfg, positions, backend)
-        n_slots = _cache_len(cfg, lp.kind, max_len)
-        if n_slots >= l:
-            pad = (0, 0, 0, n_slots - l)
-            caches.append({"k": torch.nn.functional.pad(k, pad),
-                           "v": torch.nn.functional.pad(v, pad)})
-        else:
-            caches.append({"k": _fill_cache_from_seq(k, n_slots, l),
-                           "v": _fill_cache_from_seq(v, n_slots, l)})
+    caches = init_cache(cfg, b, max_len, device=tokens.device)
     lengths = torch.full((b,), l, dtype=torch.int32, device=tokens.device)
+    x = _prefill_layers(model, tokens, lengths, caches, cfg, backend)
     return _unembed(model, x, cfg), caches, lengths
+
+
+def prefill_static(model: LM, tokens, lengths, caches: list[dict],
+                   cfg: LMConfig | None = None, backend: str = "auto"):
+    """``prefill`` over static shapes, the form a captured CUDA graph
+    replays.  tokens [B, L] hold each prompt right-padded to L; lengths
+    [B] (on tokens' device) the real lengths, 1 <= length <= L; caches
+    come from ``init_cache(cfg, B, max_len)`` with max_len >= L and are
+    written in place.  Causal attention makes every real position exact
+    under the padding, and a ring cache is filled up to the real length.
+    Slots at or past a row's length hold padding or an older request's
+    entries, which decode masks.  Returns (logits [B, V] f32 at position
+    length - 1, caches, lengths)."""
+    cfg = model.cfg if cfg is None else cfg
+    b = tokens.shape[0]
+    x = _prefill_layers(model, tokens, lengths, caches, cfg, backend)
+    last = (lengths.to(torch.int64) - 1)[:, None, None]
+    x = x.gather(1, last.expand(b, 1, x.shape[-1]))
+    return _unembed(model, x, cfg)[:, 0], caches, lengths
 
 
 def _layer_decode(lp: Layer, x, cache, cfg: LMConfig, lengths):
