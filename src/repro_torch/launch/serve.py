@@ -25,8 +25,13 @@ its CPU host.  ``--index ivf`` serves through the clustered index plane
 (k-means on the serving device at first use, or the container's
 persisted index state adopted without a retrain; ``--nprobe``,
 ``--guarantee exact`` for results provably equal to the flat scan).
-``--index ivf-sharded``/``--shards`` and multi-tenant mode
-(``--tenant-root``) come with later slices of the port.
+``--tenant-root DIR`` serves many tenants through one runtime instead:
+a container pool rooted at ``DIR`` (``DIR/<tenant>.ragdb`` each), lazy
+mounts and LRU eviction under ``--resident-budget``, per-tenant quotas
+(``--quota-rate``, ``--quota-burst``), queries round-robined over
+``--tenants`` tenant ids; it serves retrieval only, as the JAX driver
+does.  ``--index ivf-sharded``/``--shards`` come with a later slice of
+the port.
 """
 from __future__ import annotations
 
@@ -113,6 +118,22 @@ def main(argv=None):
     ap.add_argument("--shards", type=int, default=None,
                     help="cluster shards for index=ivf-sharded (not "
                     "ported yet)")
+    ap.add_argument("--tenant-root", default=None, metavar="DIR",
+                    help="serve multi-tenant: one container pool rooted "
+                    "here (<DIR>/<tenant>.ragdb per tenant), lazy mounts "
+                    "+ LRU eviction under --resident-budget "
+                    "(docs/ARCHITECTURE.md §13); queries round-robin "
+                    "over --tenants tenant ids")
+    ap.add_argument("--tenants", type=int, default=2,
+                    help="tenant count to drive in --tenant-root mode")
+    ap.add_argument("--resident-budget", type=int, default=8,
+                    help="max tenants mounted at once (LRU beyond this)")
+    ap.add_argument("--quota-rate", type=float, default=None,
+                    help="per-tenant admission quota: sustained "
+                    "requests/s (token bucket; rejections surface as "
+                    "RequestRejected)")
+    ap.add_argument("--quota-burst", type=int, default=None,
+                    help="per-tenant quota burst size (default: rate)")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default cuda; "
                     "pass cpu to run on the host)")
@@ -145,6 +166,9 @@ def main(argv=None):
 
     if args.trace:
         obs_trace.enable()
+
+    if args.tenant_root:
+        return _serve_multitenant(args)
 
     if args.container:
         kb = KnowledgeBase.load(args.container)
@@ -228,6 +252,92 @@ def main(argv=None):
         print("index stats: " + ", ".join(
             f"{k}={v}" for k, v in stats.items()))
         print(runtime.render_metrics(), end="")
+    if args.trace:
+        spans = obs_trace.get().drain()
+        n = write_chrome_trace(args.trace, spans)
+        print(f"trace: {n} events → {args.trace}")
+        print(format_breakdown(spans))
+    return 0
+
+
+def _serve_multitenant(args) -> int:
+    """N tenants through one runtime: pool-mounted containers, queries
+    round-robined over the tenant ids (retrieval plane only — per-tenant
+    LM generation composes the same way the single-tenant path does)."""
+    from repro_torch.tenancy import ContainerPool, TenantQuotas
+
+    pool = ContainerPool(
+        args.tenant_root,
+        kb_kwargs={"dim": args.dim},
+        max_resident=max(1, args.resident_budget),
+        scoring_path="kernel" if args.use_kernel else args.scoring_path,
+        index=args.index,
+        nprobe=args.nprobe,
+        guarantee=args.guarantee,
+        device=args.device,
+    )
+    quotas = None
+    if args.quota_rate:
+        quotas = TenantQuotas(default_rate=args.quota_rate,
+                              default_burst=args.quota_burst)
+    runtime = ServingRuntime(
+        pool=pool, quotas=quotas,
+        max_batch=max(1, args.max_batch),
+        flush_deadline=args.flush_deadline_ms / 1e3,
+        slo=_slo_from_args(args),
+    )
+    names = [f"tenant{i:02d}" for i in range(max(1, args.tenants))]
+    with runtime:
+        if args.corpus:
+            for name in names:
+                with runtime.tenant_writer(name) as kb:
+                    stats = kb.sync(args.corpus)
+                runtime.publish(tenant=name, durable=True)
+                print(f"[{name}] sync: +{stats.added} ~{stats.updated} "
+                      f"-{stats.removed} → durable publish")
+        print(f"serving {len(names)} tenants "
+              f"(resident budget {pool.max_resident}, "
+              f"flush ≤ {args.flush_deadline_ms:.1f} ms, "
+              f"batch ≤ {args.max_batch})")
+        t0 = time.perf_counter()
+        futures = []
+        for i, q in enumerate(args.queries):
+            name = names[i % len(names)]
+            try:
+                futures.append(
+                    (name, q, runtime.submit(q, k=args.top_k, tenant=name,
+                                             explain=args.explain)))
+            except RequestRejected as exc:
+                print(f"REJECTED [{exc.tenant}] {q!r}: {exc}")
+        for name, q, fut in futures:
+            served = fut.result()
+            print(f"\n[{name}] Q: {q}  [generation {served.generation}"
+                  f"{', cached' if served.cached else ''}]")
+            for r in served.results:
+                mark = "*" if r.boosted else " "
+                print(f"  {mark} {r.doc_id:30s} score={r.score:.4f}")
+            if args.explain and served.plan is not None:
+                print(served.plan.render())
+        dt = time.perf_counter() - t0
+        print(f"\n{len(futures)} requests in {dt * 1e3:.1f} ms")
+        print(f"serving metrics: {runtime.metrics.format()}")
+        for name, m in sorted(runtime.tenant_metrics().items()):
+            print(f"  [{name}] qps={m['qps']:.0f} "
+                  f"p50={m['latency_p50_ms']:.2f}ms "
+                  f"p99={m['latency_p99_ms']:.2f}ms "
+                  f"rejected={m['rejected']}")
+        ps = runtime.pool_stats()
+        print(f"pool: {ps['resident']}/{ps['max_resident']} resident, "
+              f"{ps['resident_bytes']} bytes, pinned={ps['pinned']}")
+        res = runtime.resources()
+        print(f"ledger: {res['resident_bytes']} resident bytes "
+              f"({res['device_bytes']} device) across "
+              f"{len(res['tenants'])} tenants")
+        if args.health:
+            _print_health(runtime)
+        if args.metrics:
+            print(runtime.render_metrics(), end="")
+    pool.drain()  # durably publish + unmount everything on the way out
     if args.trace:
         spans = obs_trace.get().drain()
         n = write_chrome_trace(args.trace, spans)

@@ -7,8 +7,11 @@ resident, broken down by *plane*:
 - ``ivf_state``      clustered-index arrays (centroids, bounds,
                      assignments, members: host numpy, the same bytes
                      the JAX package counts for the same state)
-- ``kernel_operands`` block-aligned padded doc operands for the fused
-                     kernel path
+- ``kernel_operands`` kernel-ready doc operands for the fused kernel
+                     path, counted only where they hold storage of
+                     their own (the port's kernel takes the doc
+                     tensors as they are, so this plane is 0 unless
+                     an operand is a real copy)
 - ``result_cache``   per-generation result-cache entries (host)
 - ``container``      the host-side KnowledgeBase (records, texts,
                      signatures) — an estimate, documented below
@@ -147,16 +150,27 @@ def _nbytes(obj) -> int:
     return 0
 
 
+def _storage(t) -> int:
+    """Address of the storage behind a tensor: two tensors with the same
+    address share their bytes."""
+    return t.untyped_storage().data_ptr()
+
+
 def measure_engine_planes(engine) -> dict:
     """Byte accounting of one engine's resident planes (exact for the
-    device arrays, estimated for the host container)."""
+    device arrays, estimated for the host container).  Each storage is
+    counted once: a kernel operand that is the doc matrix itself (or a
+    view of it) adds nothing to ``kernel_operands``."""
+    doc = (engine.doc_vecs, engine.doc_sigs)
     planes = {
-        "doc_matrix": _nbytes(engine.doc_vecs) + _nbytes(engine.doc_sigs),
+        "doc_matrix": sum(_nbytes(t) for t in doc),
         "ivf_state": _nbytes(engine.ivf) if engine.ivf is not None else 0,
     }
     cache = getattr(engine, "_kernel_cache", None)
-    planes["kernel_operands"] = (
-        _nbytes(cache[2]) + _nbytes(cache[3]) if cache else 0)
+    counted = {_storage(t) for t in doc}
+    planes["kernel_operands"] = sum(
+        _nbytes(t) for t in (cache[2:] if cache else ())
+        if _storage(t) not in counted)
     kb = engine.kb
     # host container estimate: per-doc signatures are exact; text +
     # per-record metadata (id, sha, term counts) approximated at

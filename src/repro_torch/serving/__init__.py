@@ -31,12 +31,22 @@ by a labeled ``repro_torch.obs`` metrics registry, and the scheduler
 emits per-stage request spans into the process tracer when
 ``repro_torch.obs.trace.enable()`` (or ``RAGDB_TRACE=1``) is on.
 
-Tenancy (``pool=``) is not ported yet and raises ``NotImplementedError``
-until the tenancy slice of the port.
+Tenancy (docs/ARCHITECTURE.md §13): construct over a
+``tenancy.ContainerPool`` instead of a KB —
+``ServingRuntime(pool=ContainerPool(root), quotas=...)`` — and the
+same runtime multiplexes N tenants: ``submit(text, k, tenant=...)``
+routes through the ``TenantRouter`` (token-bucket admission, lazy
+mount, refcount-pinned flushes), ``publish(tenant=...)`` drives that
+tenant's writer plane, the result cache is keyspace-isolated per
+tenant, and pool evictions drop the evicted tenant's cache keyspace.
+The pool's engine kwargs place every mount (the card unless they say
+``device="cpu"``).  The two construction modes are exclusive; the
+single-tenant mode is bit-identical to the pre-tenancy runtime.
 """
 from __future__ import annotations
 
 from concurrent.futures import Future
+from contextlib import contextmanager
 
 from repro_torch.analysis import sanitizers
 from repro_torch.core.engine import QueryEngine, RetrievalResult  # noqa: F401
@@ -93,11 +103,6 @@ class ServingRuntime:
         slo=None,
         **engine_kwargs,
     ):
-        if pool is not None or quotas is not None:
-            raise NotImplementedError(
-                "multi-tenant serving (pool=, quotas=) belongs to the "
-                "tenancy slice of the PyTorch port, which is not ported "
-                "yet; serve one KnowledgeBase")
         self.metrics = ServingMetrics()
         self.cache = (
             ResultCache(result_cache_size) if result_cache_size else None
@@ -108,7 +113,38 @@ class ServingRuntime:
         # first health() call so the window clock starts at first use
         self._slo = slo
         self._health_monitor = None
+        if pool is not None:
+            # multi-tenant mode: the pool owns every KB/engine stack
+            if kb is not None or engine is not None or container_path:
+                raise ValueError(
+                    "pool= is exclusive with kb=/engine=/container_path= "
+                    "— per-tenant stacks are mounted by the ContainerPool")
+            # deferred import: tenancy builds on serving.snapshot, so a
+            # module-level import here would cycle through the package
+            from repro_torch.tenancy.router import TenantRouter
+            self.pool = pool
+            self.router = TenantRouter(pool, quotas=quotas)
+            self.snapshots = None
+            # the pool's ledger is the runtime's resource accounting
+            self.ledger = pool.ledger
+            # unmount hygiene: an evicted tenant's cached results AND
+            # its labeled metric series leave memory with its stack —
+            # without the prune, zipf tenant churn grows label
+            # cardinality without bound and evicted tenants' gauges
+            # (publish lag, resident bytes) go stale forever
+            pool.on_evict = self._on_tenant_evict
+            self.scheduler = MicroBatchScheduler(
+                router=self.router,
+                max_batch=max_batch,
+                flush_deadline=flush_deadline,
+                max_queue=max_queue,
+                cache=self.cache,
+                metrics=self.metrics,
+                retrace_guard=self.retrace_guard,
+            )
+            return
         self.pool = None
+        self.router = None
         self.ledger = ResourceLedger(registry=self.metrics.registry)
         self.snapshots = SnapshotManager(
             kb, engine=engine, container_path=container_path,
@@ -124,6 +160,13 @@ class ServingRuntime:
             metrics=self.metrics,
             retrace_guard=self.retrace_guard,
         )
+
+    def _on_tenant_evict(self, tenant: str) -> None:
+        """Pool eviction hook: drop the tenant's cache keyspace and
+        prune its labeled series from the runtime registry."""
+        if self.cache is not None:
+            self.cache.drop_keyspace(tenant)
+        self.metrics.drop_tenant(tenant)
 
     # ---- lifecycle ------------------------------------------------------
 
@@ -142,48 +185,93 @@ class ServingRuntime:
 
     # ---- request plane (any thread) -------------------------------------
 
-    def submit(self, text: str, k: int = 5, *,
+    def submit(self, text: str, k: int = 5,
+               tenant: str | None = None, *,
                explain: bool = False) -> Future:
         """Future[ServedResult]; raises RequestRejected on backpressure
-        (queue full).  ``explain=True`` attaches the per-query EXPLAIN
-        plan to the resolved ``ServedResult.plan``."""
-        return self.scheduler.submit(text, k, explain=explain)
+        (queue full, or — multi-tenant mode — tenant over quota).
+        ``explain=True`` attaches the per-query EXPLAIN plan to the
+        resolved ``ServedResult.plan``."""
+        return self.scheduler.submit(text, k, tenant=tenant,
+                                     explain=explain)
 
-    def query_batch(self, texts: list[str],
-                    k: int = 5) -> list[list[RetrievalResult]]:
+    def query_batch(
+        self, texts: list[str], k: int = 5, tenant: str | None = None
+    ) -> list[list[RetrievalResult]]:
         """Blocking convenience: submit all, wait for all.  Same
         signature/result shape as ``QueryEngine.query_batch``."""
-        futures = [self.submit(t, k) for t in texts]
+        futures = [self.submit(t, k, tenant=tenant) for t in texts]
         return [f.result().results for f in futures]
 
     # ---- ingest plane (the single writer thread) ------------------------
 
-    def publish(self, durable: bool = False) -> int:
+    def publish(self, durable: bool = False,
+                tenant: str | None = None) -> int:
         """Refresh the engine from the KB's dirty log and atomically
         publish the next generation; returns the published generation.
-        Call from the same thread that mutates the KB.
+        Call from the same thread that mutates the KB (per tenant, in
+        multi-tenant mode — pass the tenant whose KB you mutated).
 
-        ``durable=True`` (requires ``container_path``) also appends the
-        O(U) delta record to the container's journal before the swap, so
-        a crash never loses a published generation."""
-        gen = self.snapshots.publish(durable=durable).generation
+        ``durable=True`` (requires ``container_path``; always available
+        in multi-tenant mode, where every mount has its container) also
+        appends the O(U) delta record to the container's journal before
+        the swap, so a crash never loses a published generation."""
+        if self.router is not None:
+            from repro_torch.tenancy.router import DEFAULT_TENANT
+            gen = self.router.publish(
+                DEFAULT_TENANT if tenant is None else tenant,
+                durable=durable)
+        else:
+            if tenant is not None:
+                raise ValueError(
+                    "tenant= requires multi-tenant mode "
+                    "(ServingRuntime(pool=...))")
+            gen = self.snapshots.publish(durable=durable).generation
         self.retrace_guard.reset()
         return gen
 
+    # ---- tenancy plane ---------------------------------------------------
+
+    @contextmanager
+    def tenant_writer(self, tenant: str):
+        """``with runtime.tenant_writer(t) as kb:`` — pin tenant ``t``
+        (mounting it if cold) and yield its KnowledgeBase for a writer
+        session; follow with ``publish(tenant=t)``.  The pin makes pool
+        eviction of the tenant structurally impossible mid-session.
+        Multi-tenant mode only."""
+        if self.router is None:
+            raise RuntimeError(
+                "tenant_writer requires multi-tenant mode "
+                "(ServingRuntime(pool=...))")
+        with self.router.writer(tenant) as mount:
+            yield mount.kb
+
     # ---- runtime sanitizers ----------------------------------------------
 
-    def arm_sanitizers(self, k: int = 5) -> None:
+    def arm_sanitizers(self, k: int = 5,
+                       tenants: list[str] | None = None) -> None:
         """Warm every query-batch bucket the serving loop can emit
         ({1, 2, 4, .., max_batch} at ``k``) against the current
-        snapshot, then arm the (eager no-op) retrace guard."""
-        snap = self.snapshots.current
+        snapshot — in multi-tenant mode against every tenant in
+        ``tenants`` (default: the resident set) — then arm the (eager
+        no-op) retrace guard.  Re-call after every ``publish()``."""
+        if self.router is not None:
+            names = tenants if tenants is not None \
+                else self.pool.resident_tenants()
+            for name in names:
+                with self.pool.pinned(name) as mount:
+                    self._warm_buckets(mount.snapshots.current, k)
+        else:
+            self._warm_buckets(self.snapshots.current, k)
+        self.retrace_guard.arm()
+
+    def _warm_buckets(self, snap, k: int) -> None:
         b = 1
         while True:
             snap.query_batch(["warmup bucket probe"] * b, k)
             if b >= self.scheduler.max_batch:
                 break
             b *= 2
-        self.retrace_guard.arm()
 
     # ---- introspection ---------------------------------------------------
 
@@ -201,13 +289,20 @@ class ServingRuntime:
         return self.engine.index_stats()
 
     def resources(self) -> dict:
-        """Ledger snapshot of resident bytes per plane (torch tensors
-        report their ``nbytes`` like numpy arrays do).  The result-cache
-        plane is refreshed from the live cache at call time."""
+        """Ledger snapshot of resident bytes per (tenant, plane) — the
+        same numbers pool eviction budgets against, so reported
+        occupancy and budget decisions can never diverge (torch tensors
+        report their ``nbytes`` like numpy arrays do, and a storage is
+        counted once).  The result-cache plane is refreshed from the
+        live cache at call time."""
         if self.cache is not None:
             sizes = self.cache.keyspace_bytes()
-            self.ledger.set_plane("default", "result_cache",
-                                  sum(sizes.values()))
+            if self.pool is None:
+                self.ledger.set_plane("default", "result_cache",
+                                      sum(sizes.values()))
+            else:
+                for keyspace, nbytes in sizes.items():
+                    self.ledger.set_plane(keyspace, "result_cache", nbytes)
         return self.ledger.snapshot()
 
     def health(self) -> dict:
@@ -220,10 +315,30 @@ class ServingRuntime:
                 export_registry=self.metrics.registry)
         return self._health_monitor.check()
 
+    def tenant_metrics(self) -> dict:
+        """Per-tenant QPS/p50/p99/rejections (multi-tenant mode;
+        empty dict on the single-tenant path)."""
+        return self.metrics.tenant_snapshot()
+
+    def pool_stats(self) -> dict:
+        """The container pool's resident/pinned/byte accounting
+        (multi-tenant mode only)."""
+        if self.pool is None:
+            raise RuntimeError("pool_stats requires multi-tenant mode")
+        return self.pool.stats()
+
     @property
     def engine(self) -> QueryEngine:
+        if self.snapshots is None:
+            raise RuntimeError(
+                "no single engine in multi-tenant mode — pin a tenant "
+                "via tenant_writer()/pool.pinned() for its stack")
         return self.snapshots.engine
 
     @property
     def generation(self) -> int:
+        if self.snapshots is None:
+            raise RuntimeError(
+                "no single generation in multi-tenant mode — use "
+                "pool.peek_generation(tenant)")
         return self.snapshots.generation

@@ -2,7 +2,9 @@
 
 Scheduled results equal a direct ``query_batch`` at the generation the
 flush pinned, under live ingest; the driver prints the JAX engine's ids
-and scores for the same corpus and generates for every request; the
+and scores for the same corpus and generates for every request, and in
+multi-tenant mode (``--tenant-root``) prints the JAX driver's ids and
+scores for every tenant; both drivers read the same flags alike; the
 package imports neither jax nor anything of the JAX package; entry
 points with no device given raise on a host without a card."""
 import contextlib
@@ -86,8 +88,8 @@ def test_scheduled_results_equal_direct_query_at_pinned_generation(
 
 def test_runtime_contracts(tmp_path):
     kb, entities = _kb(20)
-    with pytest.raises(NotImplementedError, match="tenancy"):
-        ServingRuntime(pool=object())
+    with pytest.raises(ValueError, match="exclusive"):
+        ServingRuntime(kb, pool=object())
     path = str(tmp_path / "kb.ragdb")
     runtime = ServingRuntime(kb, device="cpu", container_path=path)
     with runtime:
@@ -195,6 +197,111 @@ def test_both_serve_parsers_resolve_use_kernel_to_the_same_scoring_path(
     assert seen == {"ref": want, "port": want}
 
 
+class _StubRuntime:
+    """Stands in for the multi-tenant runtime: records what the driver
+    built from its flags, then stops the driver at its first submit."""
+
+    seen: dict = {}
+    tag = None
+
+    def __init__(self, pool=None, quotas=None, **kwargs):
+        kwargs.pop("slo")
+        type(self).seen[self.tag] = dict(
+            root=os.path.basename(pool.root),
+            max_resident=pool.max_resident, kb_kwargs=pool.kb_kwargs,
+            scoring_path=pool.engine_kwargs["scoring_path"],
+            rate=quotas and quotas.default_rate,
+            burst=quotas and quotas.default_burst, **kwargs)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def submit(self, *args, **kwargs):
+        raise _Built
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--tenants", "3", "--resident-budget", "5", "--quota-rate", "20",
+     "--quota-burst", "4"],
+    ["--quota-rate", "7.5", "--resident-budget", "0", "--use-kernel"],
+])
+def test_both_serve_parsers_resolve_the_tenant_flags_alike(
+        argv, tmp_path, monkeypatch):
+    """``--tenant-root``, ``--tenants``, ``--resident-budget``,
+    ``--quota-rate`` and ``--quota-burst`` build the same pool, quotas
+    and runtime in both drivers, which announce the same tenants."""
+    from repro.launch import serve as ref_serve
+
+    outs = {}
+    for tag, driver, extra in (("ref", ref_serve, []),
+                               ("port", serve, ["--device", "cpu"])):
+        stub = type(f"Stub_{tag}", (_StubRuntime,), {"tag": tag})
+        monkeypatch.setattr(driver, "ServingRuntime", stub)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), pytest.raises(_Built):
+            driver.main(["--tenant-root", str(tmp_path / "root"),
+                         "--dim", "256", "--queries", "x", *argv, *extra])
+        outs[tag] = buf.getvalue()
+    assert _StubRuntime.seen["ref"] == _StubRuntime.seen["port"]
+    assert outs["ref"] == outs["port"]
+    assert outs["port"].startswith("serving ")
+
+
+_TENANT_Q = re.compile(r"^\[(\S+)\] Q: (.*)  \[generation (\d+)")
+
+
+def _printed_tenants(out):
+    """{(tenant, query): (generation, rows)} and the pool/ledger lines
+    from a multi-tenant run's output."""
+    rows, cur, totals = {}, None, []
+    for line in out.splitlines():
+        if (m := _TENANT_Q.match(line)):
+            cur = (m.group(1), m.group(2))
+            rows[cur] = (int(m.group(3)), [])
+        elif cur is not None and (m := _RESULT.match(line)):
+            rows[cur][1].append((m.group(2), m.group(1) == "*", m.group(3)))
+        elif line.startswith(("pool: ", "ledger: ", "[tenant")):
+            totals.append(line)
+    return rows, totals
+
+
+def test_serve_multitenant_prints_the_jax_drivers_ids_and_scores(tmp_path):
+    from repro.launch import serve as ref_serve
+
+    docs, entities = make_corpus(n_docs=50, n_entities=3, seed=2)
+    corpus = str(tmp_path / "corpus")
+    write_corpus_dir(corpus, docs)
+    queries = list(entities) + ["other query", "invoice payment",
+                                "quarterly audit"]
+    outs = {}
+    for tag, main, extra in (("ref", ref_serve.main, []),
+                             ("port", serve.main, ["--device", "cpu"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(["--tenant-root", str(tmp_path / tag), "--tenants",
+                       "3", "--corpus", corpus, "--dim", "1024",
+                       "--top-k", "3", "--resident-budget", "2",
+                       "--queries", *queries, *extra])
+        assert rc == 0
+        outs[tag] = _printed_tenants(buf.getvalue())
+    (got, got_totals), (want, want_totals) = outs["port"], outs["ref"]
+    assert got == want
+    assert sorted(got) == sorted(
+        (f"tenant{i % 3:02d}", q) for i, q in enumerate(queries))
+    for i, (code, doc) in enumerate(entities.items()):
+        assert got[f"tenant{i % 3:02d}", code][1][0][:2] == \
+            (f"doc_{doc:05d}.txt", True)
+    # per-tenant sync lines, the pool's residency and the ledger's bytes
+    sync = [t for t in got_totals if "sync:" in t]
+    assert sync == [t for t in want_totals if "sync:" in t] and len(sync) == 3
+    assert [t for t in got_totals if t.startswith(("pool", "ledger"))] == \
+        [t for t in want_totals if t.startswith(("pool", "ledger"))]
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
@@ -204,6 +311,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.models.transformer, repro_torch.models.attention\n"
         "import repro_torch.core.rag, repro_torch.configs.llama3_2_3b\n"
         "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.tenancy, repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.live_sync\n"
+        "import repro_torch.examples.multi_tenant\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
