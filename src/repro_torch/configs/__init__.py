@@ -1,9 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Lists every architecture the JAX package's registry lists.  Ported:
-``llama3.2-3b`` and the four recsys archs (``dlrm-rm2``, ``dlrm-mlperf``,
-``deepfm``, ``autoint``); ``get`` raises ``NotImplementedError`` for the
-others, naming the ROADMAP item that brings them.
+Lists every architecture the JAX package's registry lists.  Ported: the
+five LM archs (``llama3.2-3b``, ``gemma2-9b``, ``gemma3-27b``, the MoE
+``qwen3-moe-30b-a3b`` and the MLA + MoE ``deepseek-v2-lite-16b``), the
+four recsys archs (``dlrm-rm2``, ``dlrm-mlperf``, ``deepfm``,
+``autoint``) and the retrieval config ``ragdb``; ``get`` raises
+``NotImplementedError`` for ``mace``, naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -27,18 +30,19 @@ class ArchSpec:
         return importlib.import_module(self.module).SMOKE
 
 
-_LM_LATER = "ROADMAP Queue 1 item 10 (training and generation substrate)"
 _GNN = "ROADMAP Queue 1 item 11 (GNN: models/gnn/{mace,sampler}.py)"
 
 ARCHS: dict[str, ArchSpec] = {
-    "gemma3-27b": ArchSpec("gemma3-27b", "lm", None, _LM_LATER),
-    "gemma2-9b": ArchSpec("gemma2-9b", "lm", None, _LM_LATER),
+    "gemma3-27b": ArchSpec("gemma3-27b", "lm",
+                           "repro_torch.configs.gemma3_27b"),
+    "gemma2-9b": ArchSpec("gemma2-9b", "lm", "repro_torch.configs.gemma2_9b"),
     "llama3.2-3b": ArchSpec("llama3.2-3b", "lm",
                             "repro_torch.configs.llama3_2_3b"),
-    "qwen3-moe-30b-a3b": ArchSpec("qwen3-moe-30b-a3b", "lm", None,
-                                  _LM_LATER),
-    "deepseek-v2-lite-16b": ArchSpec("deepseek-v2-lite-16b", "lm", None,
-                                     _LM_LATER),
+    "qwen3-moe-30b-a3b": ArchSpec("qwen3-moe-30b-a3b", "lm",
+                                  "repro_torch.configs.qwen3_moe_30b_a3b"),
+    "deepseek-v2-lite-16b": ArchSpec(
+        "deepseek-v2-lite-16b", "lm",
+        "repro_torch.configs.deepseek_v2_lite_16b"),
     "mace": ArchSpec("mace", "gnn", None, _GNN),
     "dlrm-rm2": ArchSpec("dlrm-rm2", "recsys",
                          "repro_torch.configs.dlrm_rm2"),
@@ -46,7 +50,7 @@ ARCHS: dict[str, ArchSpec] = {
     "dlrm-mlperf": ArchSpec("dlrm-mlperf", "recsys",
                             "repro_torch.configs.dlrm_mlperf"),
     "autoint": ArchSpec("autoint", "recsys", "repro_torch.configs.autoint"),
-    "ragdb": ArchSpec("ragdb", "ragdb", None, _LM_LATER),
+    "ragdb": ArchSpec("ragdb", "ragdb", "repro_torch.configs.ragdb"),
 }
 
 

@@ -3,6 +3,7 @@
     python -m repro_torch.examples.quickstart [--device cpu]
     python -m repro_torch.examples.live_sync [--device cpu]
     python -m repro_torch.examples.multi_tenant [--device cpu]
+    python -m repro_torch.examples.rag_serve [--device cpu]
 
 Each runs on the card unless ``--device cpu`` is given, and asserts what
 it shows.

@@ -17,11 +17,15 @@ hit rate) at the end.
         --corpus /path/to/docs --max-batch 8 \\
         --queries "what is INV-2024?" ...
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  On ``cuda`` the LM
-is ``--arch``'s full configuration (llama3.2-3b: 28 layers, d_model
-3072, bf16) with random weights from ``torch.Generator`` seed 0; on the
-CPU it is the arch's SMOKE configuration, as the JAX driver serves on
-its CPU host.  ``--index ivf`` serves through the clustered index plane
+Runs on ``cuda`` unless ``--device cpu`` is given.  ``--arch`` is any
+of the five LM archs (``llama3.2-3b``, the default; ``gemma2-9b``,
+``gemma3-27b``, ``qwen3-moe-30b-a3b``, ``deepseek-v2-lite-16b``).  On
+``cuda`` the LM is the arch's full configuration in bf16 (llama3.2-3b:
+28 layers, d_model 3072, 6.4 GB; gemma3-27b 54.0 GB, the most) with
+random weights from ``torch.Generator`` seed 0; on the CPU it is the
+arch's SMOKE configuration, as the JAX driver serves on its CPU host.
+For an MoE arch the active parameter count is printed beside the
+total.  ``--index ivf`` serves through the clustered index plane
 (k-means on the serving device at first use, or the container's
 persisted index state adopted without a retrain; ``--nprobe``,
 ``--guarantee exact`` for results provably equal to the flat scan).
@@ -85,7 +89,9 @@ def _generation_summary(gens, max_new_tokens: int) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--arch", default="llama3.2-3b",
+                    help="the LM: llama3.2-3b, gemma2-9b, gemma3-27b, "
+                    "qwen3-moe-30b-a3b or deepseek-v2-lite-16b")
     ap.add_argument("--container", default=None, help=".ragdb to load")
     ap.add_argument("--corpus", default=None, help="directory to ingest")
     ap.add_argument("--save", default=None, help="save container here")
@@ -200,7 +206,9 @@ def main(argv=None):
     cfg = arch.config if device.type == "cuda" else arch.smoke_config
     t0 = time.perf_counter()
     model = T.init(cfg, torch.Generator(device).manual_seed(0), device)
-    print(f"generator: {cfg.name}, {cfg.param_count():,} params "
+    active = (f" ({cfg.active_param_count():,} active)"
+              if cfg.moe is not None else "")
+    print(f"generator: {cfg.name}, {cfg.param_count():,} params{active} "
           f"in {cfg.dtype} on {device} (random weights, seed 0; init "
           f"{time.perf_counter() - t0:.1f} s)")
     rag = RAGPipeline(kb, model, cfg, engine=runtime.engine)

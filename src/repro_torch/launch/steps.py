@@ -28,8 +28,9 @@ the CPU the same static-shape function runs eagerly.
   assembles one (architecture × shape) cell with concrete inputs made
   from a seed: ``Cell.fn`` is the captured step and ``Cell.args`` its
   static tensors, so ``cell.fn(*cell.args)`` runs it.  LM prefill and
-  decode and recsys serve and retrieval are ported; the other kinds
-  raise, naming the ROADMAP item that brings them.
+  decode (all five LM archs: GQA or MLA caches, dense or MoE layers)
+  and recsys serve and retrieval are ported; the other kinds raise,
+  naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -384,7 +385,8 @@ def build_lm_prefill_cell(arch_id, cfg: T.LMConfig, spec: shp.ShapeSpec,
 
 
 def _fill_cache(caches: list[dict], gen: torch.Generator) -> None:
-    """Random N(0, 1) keys and values, in place, in the cache's dtype."""
+    """Random N(0, 1) cache entries (keys and values, or MLA's latent and
+    rope key), in place, in the cache's dtype."""
     for layer in caches:
         for t in layer.values():
             t.normal_(generator=gen)

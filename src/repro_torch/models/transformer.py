@@ -1,29 +1,33 @@
-"""Decoder-only LM (the JAX package's ``models/transformer.py``), dense
-branches.
+"""Decoder-only LM (the JAX package's ``models/transformer.py``):
+serving and forward for the five LM archs.
 
-One config drives: GQA attention, uniform vs local:global layer
-patterns (gemma2/3) with sliding windows, qk-norm, sandwich norms,
-attention and final logit softcaps, per-kind RoPE bases, embedding
-scale, query scale, tied or untied embeddings and KV-head replication.
-MLA and MoE layers raise ``NotImplementedError`` (ROADMAP Queue 1 item
-10), and so does training (``lm_loss``).
+One config drives: GQA vs MLA attention (``models/mla.py``), dense vs
+MoE FFN (``models/moe.py``, with deepseek's leading dense layers),
+uniform vs local:global layer patterns (gemma2/3) with sliding windows,
+qk-norm, sandwich norms, attention and final logit softcaps, per-kind
+RoPE bases, embedding scale, query scale, tied or untied embeddings and
+KV-head replication.  Training (``lm_loss``) belongs to a later slice
+(ROADMAP Queue 1 item 10).
 
-The model is an ``nn.Module`` holding the weights — matrices and the
-embedding in the compute dtype (rounded once; the reference rounds its
-float32 weights at every use to the same values), norm weights in
-float32 — with its layers in one ``nn.ModuleList`` in the reference's
-order: head layers, then unit by unit the pattern's layers, then the
-tail.  ``forward``, ``prefill`` and ``decode_step`` are a plain loop
-over it; the reference's scan, remat and sharding plumbing are JAX-only.
+The model is an ``nn.Module`` holding the weights — matrices (expert
+weights included) and the embedding in the compute dtype (rounded once;
+the reference rounds its float32 weights at every use to the same
+values), norms and the MoE router in float32 — with its layers in one
+``nn.ModuleList`` in the reference's order: head layers, then unit by
+unit the pattern's layers, then the tail.  ``forward``, ``prefill`` and
+``decode_step`` are a plain loop over it; the reference's scan, remat
+and sharding plumbing are JAX-only.
 
-KV caches: a list with one ``{"k", "v"}`` dict per layer.  Global
-layers cache the full horizon; sliding-window layers cache a ring buffer
-of exactly ``window`` slots (position p lives in slot p mod W; slot
-validity is recomputed from the current length).  ``decode_step``
-writes its token's slot in place.  ``prefill_static`` is ``prefill``
-over a right-padded prompt into caches allocated beforehand, so that
-prefill and decode both run on fixed shapes and buffers, which a CUDA
-graph can capture (``launch/steps.py``).
+Caches: a list with one dict per layer.  GQA layers hold ``{"k", "v"}``
+[B, Hkv, S, Dh]: global layers cache the full horizon, sliding-window
+layers a ring buffer of exactly ``window`` slots (position p lives in
+slot p mod W; slot validity is recomputed from the current length).
+MLA layers hold the compressed ``{"c_kv": [B, S, R], "k_rope": [B, 1,
+S, rope]}``.  ``decode_step`` writes its token's slot in place.
+``prefill_static`` is ``prefill`` over a right-padded prompt into caches
+allocated beforehand, so that prefill and decode both run on fixed
+shapes and buffers, which a CUDA graph can capture (``launch/steps.py``;
+the MoE dispatch reads nothing back to the host).
 """
 from __future__ import annotations
 
@@ -33,35 +37,17 @@ import torch
 import torch.nn as nn
 
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, mla as mla_mod, moe as moe_mod
+from repro_torch.models.mla import MLAConfig
+from repro_torch.models.moe import MoEConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
-# weights stored in the compute dtype; every other leaf is a norm (f32)
+# weights stored in the compute dtype (expert and shared-expert weights
+# too); every other leaf — the norms and the MoE router — is float32
 _MATRICES = frozenset({"embed", "lm_head", "w_q", "w_k", "w_v", "w_o",
-                       "w_gate", "w_up", "w_down"})
-_UNPORTED = ("MLA and MoE layers belong to a later slice of the PyTorch "
-             "port (ROADMAP Queue 1 item 10)")
-
-
-@dataclass(frozen=True)
-class MoEConfig:
-    n_experts: int
-    top_k: int
-    d_ff_expert: int
-    n_shared: int = 0
-    norm_topk: bool = True
-    router_dtype: str = "float32"
-    aux_loss_weight: float = 0.001
-
-
-@dataclass(frozen=True)
-class MLAConfig:
-    kv_lora_rank: int = 512
-    rope_head_dim: int = 64
-    nope_head_dim: int = 128
-    v_head_dim: int = 128
-    q_lora_rank: int | None = None  # V2-Lite: queries uncompressed
+                       "w_gate", "w_up", "w_down",
+                       "w_dkv", "w_kr", "w_uk", "w_uv"})
 
 
 @dataclass(frozen=True)
@@ -132,7 +118,7 @@ class LMConfig:
         if self.query_scale is not None:
             return self.query_scale
         if self.mla is not None:
-            return (self.mla.nope_head_dim + self.mla.rope_head_dim) ** -0.5
+            return self.mla.scale
         return self.head_dim ** -0.5
 
     def param_count(self) -> int:
@@ -144,7 +130,7 @@ class LMConfig:
         def attn_params():
             if self.mla is not None:
                 m = self.mla
-                qdim = m.nope_head_dim + m.rope_head_dim
+                qdim = m.qk_head_dim
                 return (d * self.n_heads * qdim + d * m.kv_lora_rank
                         + d * m.rope_head_dim + m.kv_lora_rank
                         + m.kv_lora_rank * self.n_heads * m.nope_head_dim
@@ -172,6 +158,21 @@ class LMConfig:
             n += attn_params() + mlp_params(moe_layer) + norms
         return n
 
+    def active_param_count(self) -> int:
+        """Parameters a token passes through (MoE: the routed top-k and
+        the shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        full_expert = 3 * m.n_experts * self.d_model * m.d_ff_expert
+        active_expert = 3 * m.top_k * self.d_model * m.d_ff_expert
+        n_moe_layers = self.n_layers - self.n_dense_head_layers
+        return self.param_count() - n_moe_layers * (full_expert
+                                                    - active_expert)
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.moe is not None and i >= self.n_dense_head_layers
+
 
 # --------------------------------------------------------------------------
 # the model and its weights
@@ -185,23 +186,46 @@ def _leaf(name: str, value, cfg: LMConfig, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-def _params(tree: dict, cfg: LMConfig, device) -> nn.ParameterDict:
-    return nn.ParameterDict({k: _leaf(k, v, cfg, device)
-                             for k, v in tree.items()})
+def _rounded(tree: dict, cfg: LMConfig) -> dict:
+    """``tree`` with its matrices in the compute dtype (drawn float32
+    one layer at a time, so the float32 draw of the whole model never
+    exists at once)."""
+    return {k: _rounded(v, cfg) if isinstance(v, dict)
+            else v.to(cfg.compute_dtype) if k in _MATRICES else v
+            for k, v in tree.items()}
+
+
+class Weights(nn.Module):
+    """A (nested) parameter tree with the reference's leaf names:
+    ``w["w_q"]`` is a parameter, ``w["shared"]`` a sub-tree."""
+
+    def __init__(self, tree: dict, cfg: LMConfig, device):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, Weights(v, cfg, device))
+            else:
+                self.register_parameter(k, _leaf(k, v, cfg, device))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
 
 
 class Layer(nn.Module):
-    """One decoder layer: ``norms`` (ln1, ln2, post_ln1/2), ``attn``
-    (w_q, w_k, w_v, w_o, q_norm/k_norm) and ``mlp`` (w_gate, w_up,
-    w_down), named as in the reference's parameter tree."""
+    """One decoder layer: ``norms`` (ln1, ln2, post_ln1/2), ``attn`` (GQA:
+    w_q, w_k, w_v, w_o, q_norm/k_norm; MLA: w_q, w_dkv, w_kr, kv_norm,
+    w_uk, w_uv, w_o) and ``mlp`` (dense: w_gate, w_up, w_down; MoE:
+    router, stacked w_gate/w_up/w_down, ``shared``), named as in the
+    reference's parameter tree."""
 
-    def __init__(self, kind: str, tree: dict, cfg: LMConfig, device):
+    def __init__(self, kind: str, moe: bool, tree: dict, cfg: LMConfig,
+                 device):
         super().__init__()
-        self.kind = kind
-        self.norms = _params({k: v for k, v in tree.items()
+        self.kind, self.moe = kind, moe
+        self.norms = Weights({k: v for k, v in tree.items()
                               if k not in ("attn", "mlp")}, cfg, device)
-        self.attn = _params(tree["attn"], cfg, device)
-        self.mlp = _params(tree["mlp"], cfg, device)
+        self.attn = Weights(tree["attn"], cfg, device)
+        self.mlp = Weights(tree["mlp"], cfg, device)
 
 
 class LM(nn.Module):
@@ -210,7 +234,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: LMConfig, tree: dict, device):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.embed = _leaf("embed", tree["embed"], cfg, device)
         self.final_norm = _leaf("final_norm", tree["final_norm"], cfg,
@@ -222,68 +245,73 @@ class LM(nn.Module):
             raise ValueError(f"{len(tree['layers'])} layer trees for "
                              f"{len(kinds)} layers")
         self.layers = nn.ModuleList(
-            Layer(kind, lt, cfg, device)
-            for kind, lt in zip(kinds, tree["layers"]))
+            Layer(kind, cfg.is_moe_layer(i), lt, cfg, device)
+            for i, (kind, lt) in enumerate(zip(kinds, tree["layers"])))
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
 
-def _check_ported(cfg: LMConfig) -> None:
-    if cfg.mla is not None or cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: {_UNPORTED}")
-
-
-def init(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
-    """Random weights with the reference's init distributions (normal ×
-    d_in^-1/2 matrices, normal × 0.01 embedding, zero norms), drawn
-    layer by layer from ``generator`` on ``device`` (the generator's own
-    device by default).  A torch generator does not replay
-    ``jax.random``; tests carry the reference's weights with
-    ``params_from_numpy``."""
-    _check_ported(cfg)
-    device = generator.device if device is None else torch.device(device)
+def _init_layer(gen, cfg: LMConfig, moe_layer: bool, device) -> dict:
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def zeros(n):
         return torch.zeros((n,), dtype=torch.float32, device=device)
 
     def dense(d_in, d_out):
-        # rounded to the compute dtype one matrix at a time, so the
-        # float32 draw of the whole model never exists at once
-        return layers.dense_init(generator, d_in, d_out, device=device) \
+        return layers.dense_init(gen, d_in, d_out, device=device) \
             .to(cfg.compute_dtype)
 
-    tree = {"embed": layers.embed_init(generator, cfg.vocab, d,
-                                       device=device).to(cfg.compute_dtype),
-            "final_norm": zeros(d)}
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = dense(d, cfg.vocab)
-    tree["layers"] = []
-    for _ in cfg.layer_kinds:
-        lt = {"ln1": zeros(d), "ln2": zeros(d)}
-        if cfg.post_norms:
-            lt["post_ln1"] = zeros(d)
-            lt["post_ln2"] = zeros(d)
+    lt = {"ln1": zeros(d), "ln2": zeros(d)}
+    if cfg.post_norms:
+        lt["post_ln1"] = zeros(d)
+        lt["post_ln2"] = zeros(d)
+    if cfg.mla is not None:
+        lt["attn"] = _rounded(mla_mod.init(gen, cfg.mla, d, h, device), cfg)
+    else:
         lt["attn"] = {"w_q": dense(d, h * hd), "w_k": dense(d, hkv * hd),
                       "w_v": dense(d, hkv * hd), "w_o": dense(h * hd, d)}
         if cfg.qk_norm:
             lt["attn"]["q_norm"] = zeros(hd)
             lt["attn"]["k_norm"] = zeros(hd)
+    if moe_layer:
+        lt["mlp"] = _rounded(moe_mod.init(gen, cfg.moe, d, device), cfg)
+    else:
         ff = cfg.dense_d_ff or cfg.d_ff
         lt["mlp"] = {"w_gate": dense(d, ff), "w_up": dense(d, ff),
                      "w_down": dense(ff, d)}
-        tree["layers"].append(lt)
+    return lt
+
+
+def init(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
+    """Random weights with the reference's init distributions (normal ×
+    d_in^-1/2 matrices and experts, normal × 0.01 embedding, zero norms),
+    drawn layer by layer from ``generator`` on ``device`` (the
+    generator's own device by default) and rounded to the compute dtype
+    as they are drawn.  A torch generator does not replay
+    ``jax.random``; tests carry the reference's weights with
+    ``params_from_numpy``."""
+    device = generator.device if device is None else torch.device(device)
+    d = cfg.d_model
+    tree = {"embed": layers.embed_init(generator, cfg.vocab, d,
+                                       device=device).to(cfg.compute_dtype),
+            "final_norm": torch.zeros((d,), dtype=torch.float32,
+                                      device=device)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = layers.dense_init(
+            generator, d, cfg.vocab, device=device).to(cfg.compute_dtype)
+    tree["layers"] = [_init_layer(generator, cfg, cfg.is_moe_layer(i),
+                                  device)
+                      for i in range(cfg.n_layers)]
     return LM(cfg, tree, device)
 
 
 def params_from_numpy(cfg: LMConfig, tree: dict, device) -> LM:
     """The reference's parameter pytree (``T.init``), as numpy arrays,
     as the port's model.  ``scan`` leaves carry a leading [n_units]
-    axis; layers are taken head, then unit by unit ``l0..l{P-1}``, then
-    tail."""
-    _check_ported(cfg)
+    axis (the MoE experts' [n_units, E, ...]); layers are taken head,
+    then unit by unit ``l0..l{P-1}``, then tail."""
 
     def unit_slice(sub, u):
         if isinstance(sub, dict):
@@ -341,28 +369,46 @@ def _attn_out(lp: Layer, o, x):
 
 
 def _mlp_block(lp: Layer, x, a, cfg: LMConfig):
-    """Residual add of the attention output, then the MLP sublayer."""
+    """Residual add of the attention output, then the MLP sublayer (dense
+    or MoE).  Returns (x, the MoE aux loss or None)."""
     if cfg.post_norms:
         a = _norm(a, lp.norms["post_ln1"])
     x = x + a
-    m = layers.mlp_apply(lp.mlp, _norm(x, lp.norms["ln2"]),
-                         activation=cfg.activation)
+    h = _norm(x, lp.norms["ln2"])
+    aux = None
+    if lp.moe:
+        b, l, d = h.shape
+        m, aux = moe_mod.apply(lp.mlp, h.reshape(b * l, d), cfg.moe)
+        m = m.view(b, l, d)
+    else:
+        m = layers.mlp_apply(lp.mlp, h, activation=cfg.activation)
     if cfg.post_norms:
         m = _norm(m, lp.norms["post_ln2"])
-    return x + m
+    return x + m, aux
 
 
 def _layer_full(lp: Layer, x, cfg: LMConfig, positions, backend):
-    """One layer over the whole sequence; returns (x, k, v)."""
+    """One layer over the whole sequence; returns (x, aux, kv): kv maps
+    each cache entry's name to this layer's sequence of it ({"k", "v"}
+    [B, Hkv, L, Dh], or MLA's {"c_kv" [B, L, R], "k_rope" [B, 1, L,
+    rope]})."""
     kind = lp.kind
-    q, k, v = _gqa_project(lp, _norm(x, lp.norms["ln1"]), cfg, positions,
-                           _rope_base_for(cfg, kind))
-    o = attn.attention(
-        q, k, v, scale=cfg.attn_scale, causal=True,
-        window=cfg.window if kind == "local" else None,
-        softcap=cfg.attn_softcap, backend=backend,
-    )
-    return _mlp_block(lp, x, _attn_out(lp, o, x), cfg), k, v
+    xin = _norm(x, lp.norms["ln1"])
+    base = _rope_base_for(cfg, kind)
+    if cfg.mla is not None:
+        a, (c_kv, k_rope) = mla_mod.apply(lp.attn, xin, cfg.mla, cfg.n_heads,
+                                          positions, base, backend=backend)
+        kv = {"c_kv": c_kv, "k_rope": k_rope}
+    else:
+        q, k, v = _gqa_project(lp, xin, cfg, positions, base)
+        o = attn.attention(
+            q, k, v, scale=cfg.attn_scale, causal=True,
+            window=cfg.window if kind == "local" else None,
+            softcap=cfg.attn_softcap, backend=backend,
+        )
+        a, kv = _attn_out(lp, o, x), {"k": k, "v": v}
+    x, aux = _mlp_block(lp, x, a, cfg)
+    return x, aux, kv
 
 
 # --------------------------------------------------------------------------
@@ -395,14 +441,18 @@ def _positions(b: int, l: int, device):
 def forward(model: LM, tokens, cfg: LMConfig | None = None,
             backend: str = "auto"):
     """Full-sequence forward.  tokens [B, L] → (logits [B, L, V] f32,
-    aux): aux is the MoE loss, 0 for the dense layers ported here."""
+    aux): aux is the MoE layers' summed load-balance loss (0 without
+    MoE layers)."""
     cfg = model.cfg if cfg is None else cfg
     b, l = tokens.shape
     positions = _positions(b, l, tokens.device)
     x = _embed(model, tokens, cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
-        x, _, _ = _layer_full(lp, x, cfg, positions, backend)
-    return _unembed(model, x, cfg), torch.zeros((), device=x.device)
+        x, aux, _ = _layer_full(lp, x, cfg, positions, backend)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return _unembed(model, x, cfg), aux_total
 
 
 # --------------------------------------------------------------------------
@@ -428,16 +478,29 @@ def _ring_slot_positions(n_slots: int, length) -> torch.Tensor:
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
                device=None) -> list[dict]:
-    """Zeroed caches, one ``{"k", "v"}`` dict per layer."""
-    _check_ported(cfg)
+    """Zeroed caches, one dict per layer: ``{"k", "v"}`` [B, Hkv, S, Dh],
+    or MLA's ``{"c_kv": [B, S, R], "k_rope": [B, 1, S, rope]}``."""
     dtype = dtype or cfg.compute_dtype
-    return [
-        {name: torch.zeros((batch, cfg.n_kv_eff,
-                            _cache_len(cfg, kind, max_len), cfg.head_dim),
-                           dtype=dtype, device=device)
-         for name in ("k", "v")}
-        for kind in cfg.layer_kinds
-    ]
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def one(kind):
+        s = _cache_len(cfg, kind, max_len)
+        if cfg.mla is not None:
+            m = cfg.mla
+            return {"c_kv": zeros(batch, s, m.kv_lora_rank),
+                    "k_rope": zeros(batch, 1, s, m.rope_head_dim)}
+        return {name: zeros(batch, cfg.n_kv_eff, s, cfg.head_dim)
+                for name in ("k", "v")}
+
+    return [one(kind) for kind in cfg.layer_kinds]
+
+
+def slots_view(t: torch.Tensor) -> torch.Tensor:
+    """A cache entry (or its sequence) as [B, H, S, ·], slots on axis 2:
+    MLA's c_kv [B, S, R] as [B, 1, S, R], a view."""
+    return t[:, None] if t.dim() == 3 else t
 
 
 def _fill_cache_from_seq(k_seq, n_slots: int, length):
@@ -456,20 +519,21 @@ def _fill_cache_from_seq(k_seq, n_slots: int, length):
 
 def _prefill_layers(model: LM, tokens, lengths, caches: list[dict],
                     cfg: LMConfig, backend: str):
-    """The prompt tokens [B, L] through every layer, each layer's keys
-    and values written into its cache in place (a ring cache up to the
-    real ``lengths``); returns the last layer's output [B, L, d]."""
+    """The prompt tokens [B, L] through every layer, each layer's cache
+    entries written into its cache in place (a ring cache up to the real
+    ``lengths``); returns the last layer's output [B, L, d]."""
     b, l = tokens.shape
     positions = _positions(b, l, tokens.device)
     x = _embed(model, tokens, cfg)
     for lp, cache in zip(model.layers, caches):
-        x, k, v = _layer_full(lp, x, cfg, positions, backend)
-        n_slots = cache["k"].shape[2]
-        for name, seq in (("k", k), ("v", v)):
+        x, _, kv = _layer_full(lp, x, cfg, positions, backend)
+        for name, seq in kv.items():
+            dst, seq = slots_view(cache[name]), slots_view(seq)
+            n_slots = dst.shape[2]
             if n_slots >= l:
-                cache[name][:, :, :l] = seq
+                dst[:, :, :l] = seq
             else:
-                cache[name].copy_(_fill_cache_from_seq(seq, n_slots, lengths))
+                dst.copy_(_fill_cache_from_seq(seq, n_slots, lengths))
     return x
 
 
@@ -492,10 +556,11 @@ def prefill_static(model: LM, tokens, lengths, caches: list[dict],
     [B] (on tokens' device) the real lengths, 1 <= length <= L; caches
     come from ``init_cache(cfg, B, max_len)`` with max_len >= L and are
     written in place.  Causal attention makes every real position exact
-    under the padding, and a ring cache is filled up to the real length.
-    Slots at or past a row's length hold padding or an older request's
-    entries, which decode masks.  Returns (logits [B, V] f32 at position
-    length - 1, caches, lengths)."""
+    under the padding (an MoE layer routes each token on its own), and a
+    ring cache is filled up to the real length.  Slots at or past a
+    row's length hold padding or an older request's entries, which
+    decode masks.  Returns (logits [B, V] f32 at position length - 1,
+    caches, lengths)."""
     cfg = model.cfg if cfg is None else cfg
     b = tokens.shape[0]
     x = _prefill_layers(model, tokens, lengths, caches, cfg, backend)
@@ -504,18 +569,17 @@ def prefill_static(model: LM, tokens, lengths, caches: list[dict],
     return _unembed(model, x, cfg)[:, 0], caches, lengths
 
 
-def _layer_decode(lp: Layer, x, cache, cfg: LMConfig, lengths):
-    """One decoded token through one layer; writes its cache slot in
-    place and returns x."""
-    b = x.shape[0]
+def _gqa_decode(lp: Layer, xin, cache, cfg: LMConfig, lengths, positions):
+    """GQA attention of one token against its layer's cache, whose slot
+    it writes in place; returns [B, 1, d_model]."""
+    b = xin.shape[0]
     kind = lp.kind
-    positions = (lengths - 1)[:, None].to(torch.int64)  # [B, 1]
-    q, k_new, v_new = _gqa_project(lp, _norm(x, lp.norms["ln1"]), cfg,
-                                   positions, _rope_base_for(cfg, kind))
+    q, k_new, v_new = _gqa_project(lp, xin, cfg, positions,
+                                   _rope_base_for(cfg, kind))
     k_cache, v_cache = cache["k"], cache["v"]
     n_slots = k_cache.shape[2]
     slot = ((lengths - 1) % n_slots).to(torch.int64)  # [B]
-    b_idx = torch.arange(b, device=x.device)
+    b_idx = torch.arange(b, device=xin.device)
     k_cache[b_idx, :, slot, :] = k_new[:, :, 0, :].to(k_cache.dtype)
     v_cache[b_idx, :, slot, :] = v_new[:, :, 0, :].to(v_cache.dtype)
     if kind == "local" and cfg.window is not None \
@@ -531,7 +595,22 @@ def _layer_decode(lp: Layer, x, cache, cfg: LMConfig, lengths):
             q, k_cache, v_cache, lengths, scale=cfg.attn_scale,
             window=cfg.window if kind == "local" else None,
             softcap=cfg.attn_softcap)
-    return _mlp_block(lp, x, _attn_out(lp, o, x), cfg)
+    return _attn_out(lp, o, xin)
+
+
+def _layer_decode(lp: Layer, x, cache, cfg: LMConfig, lengths):
+    """One decoded token through one layer; writes its cache slot in
+    place and returns x."""
+    xin = _norm(x, lp.norms["ln1"])
+    positions = (lengths - 1)[:, None].to(torch.int64)  # [B, 1]
+    if cfg.mla is not None:
+        a, _ = mla_mod.decode_absorbed(
+            lp.attn, xin, cfg.mla, cfg.n_heads, cache["c_kv"],
+            cache["k_rope"], lengths, positions,
+            _rope_base_for(cfg, lp.kind))
+    else:
+        a = _gqa_decode(lp, xin, cache, cfg, lengths, positions)
+    return _mlp_block(lp, x, a, cfg)[0]
 
 
 def decode_step(model: LM, caches: list[dict], tokens, lengths,
@@ -539,7 +618,8 @@ def decode_step(model: LM, caches: list[dict], tokens, lengths,
     """One decode step.  tokens [B, 1] (the token just sampled), lengths
     [B] = cache fill INCLUDING this token.  Returns (logits [B, 1, V],
     caches) — the caches are updated in place.  Decode attention is
-    plain PyTorch on every backend, as in the reference."""
+    plain PyTorch on every backend, as in the reference (MLA: the
+    absorbed form over the compressed cache)."""
     del backend
     cfg = model.cfg if cfg is None else cfg
     x = _embed(model, tokens, cfg)

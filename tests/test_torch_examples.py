@@ -2,14 +2,20 @@
 what it shows (entity recall, IVF exact mode equal to the flat scan,
 zero torn reads under live ingest, crash recovery from the journal,
 LRU eviction with durable state, quota rejections carrying the
-tenant), and exits cleanly."""
+tenant, micro-batched RAG serving with gemma2 SMOKE generation), and
+exits cleanly."""
 import contextlib
 import io
 
 import pytest
 import torch
 
-from repro_torch.examples import live_sync, multi_tenant, quickstart
+from repro_torch.examples import (
+    live_sync,
+    multi_tenant,
+    quickstart,
+    rag_serve,
+)
 
 # the suite runs test files in parallel workers: keep this file's torch
 # ops on one thread so they do not starve the other workers
@@ -47,7 +53,16 @@ def test_multi_tenant():
     assert "[initech] quota rejected 5/6 flood requests" in out
 
 
-@pytest.mark.parametrize("example", [quickstart, live_sync, multi_tenant])
+def test_rag_serve():
+    out = _run(rag_serve)
+    assert "(gemma2-smoke, 0.2 M params, on cpu)" in out
+    assert out.count(" tokens=[") == 8
+    assert "mean occupancy" in out
+    assert "RQ2 check: all entity requests retrieved their doc ✓" in out
+
+
+@pytest.mark.parametrize("example", [quickstart, live_sync, multi_tenant,
+                                     rag_serve])
 def test_examples_default_to_the_card(example, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

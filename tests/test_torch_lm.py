@@ -5,11 +5,14 @@ Weights are the JAX package's own ``T.init(PRNGKey(0), cfg)``, carried
 across with ``params_from_numpy``.  Logits are compared scaled by their
 largest magnitude at 5e-4, the tolerance `tests/test_models_lm.py` holds
 the reference's own prefill/decode to (f32, summation order).  The
-SMOKE configs of llama3.2-3b, gemma2-9b and gemma3-27b cover GQA, the
-sliding window and its ring cache, both softcaps, qk-norm, sandwich
-norms, embedding and query scales.  End to end, the port's
-``RAGPipeline`` on the CPU serves the same doc ids, scores and greedy
-tokens as the JAX package's on one container."""
+SMOKE configs of the five LM archs cover GQA, the sliding window and
+its ring cache, both softcaps, qk-norm, sandwich norms, embedding and
+query scales (llama3.2-3b, gemma2-9b, gemma3-27b), MoE routing with and
+without renormalised gates and shared experts (qwen3-moe-30b-a3b,
+deepseek-v2-lite-16b) and MLA with its compressed cache and absorbed
+decode (deepseek-v2-lite-16b).  End to end, the port's ``RAGPipeline``
+on the CPU serves the same doc ids, scores and greedy tokens as the JAX
+package's on one container, with each arch as its generator."""
 import dataclasses
 import functools
 
@@ -36,7 +39,6 @@ from repro_torch.models import layers, transformer as T
 # ops on one thread so they do not starve the other workers
 torch.set_num_threads(1)
 
-DENSE_ARCHS = ["llama3.2-3b", "gemma2-9b", "gemma3-27b"]
 LM_ARCHS = [a for a, s in ref_configs.ARCHS.items() if s.family == "lm"]
 TOL = 5e-4
 
@@ -67,7 +69,7 @@ def _carried(arch):
     return rc, params, cfg, model
 
 
-@pytest.fixture(params=DENSE_ARCHS)
+@pytest.fixture(params=LM_ARCHS)
 def carried(request):
     return _carried(request.param)
 
@@ -77,6 +79,29 @@ def _close(got, want, label=""):
     scale = np.abs(want).max() + 1e-6
     np.testing.assert_allclose(np.asarray(got) / scale, want / scale,
                                atol=TOL, err_msg=label)
+
+
+def _close_caches_flat(caches, ref_caches, cfg, slots, label):
+    """Every layer's cache entries against the reference's pytree (head,
+    scan units stacked per pattern position, tail), the first ``slots``
+    slots of a cache that holds the whole horizon; a ring (fewer slots)
+    whole."""
+    nh, p = cfg.n_dense_head_layers, len(cfg.pattern)
+    for i, c in enumerate(caches):
+        if i < nh:
+            ref = ref_caches["head"][i]
+        elif i < nh + cfg.n_units * p:
+            u, j = divmod(i - nh, p)
+            ref = {n: t[u] for n, t in ref_caches["scan"][f"l{j}"].items()}
+        else:
+            ref = ref_caches["tail"][i - nh - cfg.n_units * p]
+        assert set(c) == set(ref), (i, sorted(c))
+        for name, t in c.items():
+            got, want = T.slots_view(t), T.slots_view(
+                torch.tensor(np.asarray(ref[name])))
+            n = min(slots, got.shape[2])
+            _close(got[:, :, :n].numpy(), want[:, :, :n].numpy(),
+                   f"{label} layer {i} {name}")
 
 
 def _tokens(vocab, shape, seed):
@@ -151,10 +176,14 @@ def test_forward_prefill_decode_match_jax(carried):
     rc, params, cfg, model = carried
     b, l, max_len = 2, 31, 40
     toks = _tokens(cfg.vocab, (b, l), seed=cfg.n_layers)
-    want_full, _ = _ref_forward(params, jnp.asarray(toks), rc)
+    want_full, want_aux = _ref_forward(params, jnp.asarray(toks), rc)
     got_full, aux = T.forward(model, torch.from_numpy(toks), cfg)
-    assert got_full.shape == (b, l, cfg.vocab) and float(aux) == 0.0
+    assert got_full.shape == (b, l, cfg.vocab)
     _close(got_full.numpy(), want_full, f"{cfg.name} forward")
+    # the summed MoE load-balance loss (0 without MoE layers)
+    assert (float(aux) == 0.0) == (cfg.moe is None)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=0,
+                               atol=1e-6)
 
     want_pre, ref_caches, ref_lengths = _ref_prefill(
         params, jnp.asarray(toks[:, :l - 2]), rc, max_len)
@@ -164,6 +193,7 @@ def test_forward_prefill_decode_match_jax(carried):
     if cfg.window is not None:  # local layers keep a window-sized ring
         local = cfg.layer_kinds.index("local")
         assert caches[local]["k"].shape[2] == cfg.window
+    _close_caches_flat(caches, ref_caches, cfg, l - 2, f"{cfg.name} prefill")
     for t in range(l - 2, l):
         lengths, ref_lengths = lengths + 1, ref_lengths + 1
         logits, caches = T.decode_step(
@@ -175,6 +205,7 @@ def test_forward_prefill_decode_match_jax(carried):
                f"{cfg.name} decode step {t}")
         _close(logits[:, 0].numpy(), np.asarray(want_full)[:, t],
                f"{cfg.name} decode step {t} against forward")
+    _close_caches_flat(caches, ref_caches, cfg, l, f"{cfg.name} decode")
 
 
 def test_port_prefill_plus_decode_equals_port_forward(carried):
@@ -191,8 +222,9 @@ def test_port_prefill_plus_decode_equals_port_forward(carried):
         _close(logits[:, 0].numpy(), full[:, t].numpy(), f"step {t}")
 
 
-def test_port_init_draws_the_reference_shapes_and_dtypes():
-    cfg = dataclasses.replace(configs.get("llama3.2-3b").smoke_config,
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_port_init_draws_the_reference_shapes_and_dtypes(arch):
+    cfg = dataclasses.replace(configs.get(arch).smoke_config,
                               dtype="bfloat16")
     a = T.init(cfg, torch.Generator().manual_seed(0))
     b = T.init(cfg, torch.Generator().manual_seed(0))
@@ -217,39 +249,51 @@ def test_config_param_counts_match_jax(arch):
     for rc in (spec.config, spec.smoke_config):
         cfg = port_config(rc)
         assert cfg.param_count() == rc.param_count()
+        assert cfg.active_param_count() == rc.active_param_count()
+        assert (cfg.active_param_count() < cfg.param_count()) == \
+            (cfg.moe is not None)
         assert cfg.layer_kinds == (
             (rc.pattern[0],) * rc.n_dense_head_layers
             + rc.pattern * rc.n_units + rc.tail_kinds)
         assert cfg.attn_scale == rc.attn_scale
 
 
+PORTED = [a for a in ref_configs.ARCHS if a != "mace"]
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_registered_config_equals_jax(arch):
+    """FULL and SMOKE field for field (the LM configs' MoE and MLA parts
+    too), from the port's own config module."""
+    spec, ref = configs.get(arch), ref_configs.get(arch)
+    assert spec.family == ref.family
+    assert spec.module == f"repro_torch.configs.{ref.module.split('.')[-1]}"
+    for name in ("config", "smoke_config"):
+        got, want = getattr(spec, name), getattr(ref, name)
+        if spec.family == "lm":
+            assert got == port_config(want)
+            assert isinstance(got, T.LMConfig)
+        else:
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            assert type(got).__module__.startswith("repro_torch.")
+
+
 def test_registry_resolves_llama_and_names_the_roadmap_for_the_rest():
+    """Every arch resolves but the GNN's, which names its ROADMAP item."""
     for name in ("config", "smoke_config"):
         got = getattr(configs.get("llama3.2-3b"), name)
         want = getattr(ref_configs.get("llama3.2-3b"), name)
         assert got == port_config(want)
     assert configs.get("llama3.2-3b").config.compute_dtype == torch.bfloat16
     assert set(configs.ARCHS) == set(ref_configs.ARCHS)
-    ported = {"llama3.2-3b", "dlrm-rm2", "dlrm-mlperf", "deepfm", "autoint"}
     for arch in configs.ARCHS:
-        if arch in ported:
-            assert configs.get(arch).module.startswith("repro_torch.")
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if arch == "mace":
+            with pytest.raises(NotImplementedError, match="item 11"):
                 configs.get(arch)
+        else:
+            assert configs.get(arch).module.startswith("repro_torch.")
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"])
-def test_mla_and_moe_configs_raise(arch):
-    cfg = port_config(ref_configs.ARCHS[arch].smoke_config)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        T.init(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        T.init_cache(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        T.params_from_numpy(cfg, {}, "cpu")
 
 
 def test_init_cache_shapes_follow_the_layer_kinds():
@@ -260,6 +304,21 @@ def test_init_cache_shapes_follow_the_layer_kinds():
         s = cfg.window if kind == "local" else 40
         assert c["k"].shape == c["v"].shape == (2, cfg.n_kv_heads, s, 16)
         assert c["k"].dtype == torch.float32 and not c["k"].any()
+
+
+def test_mla_cache_is_the_compressed_latent_and_rope_key():
+    cfg = port_config(ref_configs.ARCHS["deepseek-v2-lite-16b"].smoke_config)
+    caches = T.init_cache(cfg, 2, 40)
+    want = RT.init_cache(ref_configs.ARCHS["deepseek-v2-lite-16b"]
+                         .smoke_config, 2, 40)
+    assert len(caches) == cfg.n_layers
+    for c in caches:
+        assert set(c) == {"c_kv", "k_rope"}
+        assert c["c_kv"].shape == want["head"][0]["c_kv"].shape == (2, 40, 32)
+        assert c["k_rope"].shape == want["head"][0]["k_rope"].shape \
+            == (2, 1, 40, 8)
+        assert T.slots_view(c["c_kv"]).shape == (2, 1, 40, 32)
+        assert not any(t.any() for t in c.values())
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +341,8 @@ def _greedy_agrees(params, rc, prompt, want, got):
     return len(want) == len(got)
 
 
-def test_rag_pipeline_matches_jax_end_to_end(tmp_path):
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_rag_pipeline_matches_jax_end_to_end(tmp_path, arch):
     docs, entities = make_corpus(n_docs=40, n_entities=3, seed=5)
     kb = KnowledgeBase(dim=512)
     for i, d in enumerate(docs):
@@ -291,8 +351,8 @@ def test_rag_pipeline_matches_jax_end_to_end(tmp_path):
     kb.save(path)
     kb, ref_kb = KnowledgeBase.load(path), RefKB.load(path)
 
-    rc, params, cfg, model = _carried("llama3.2-3b")
-    assert cfg == configs.get("llama3.2-3b").smoke_config
+    rc, params, cfg, model = _carried(arch)
+    assert cfg == configs.get(arch).smoke_config
     rag = RAGPipeline(kb, model, cfg,
                       engine=QueryEngine(kb, device="cpu"))
     ref = RefRAG(ref_kb, params, rc)

@@ -155,6 +155,35 @@ def test_serve_prints_the_jax_engines_ids_and_scores(tmp_path):
     assert "serving metrics: served 5/5 requests" in out
 
 
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b",
+                                  "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"])
+def test_serve_generates_with_every_lm_arch(tmp_path, arch):
+    """``--arch`` takes each LM arch; the CPU serves its SMOKE config, and
+    an MoE arch's active parameter count is printed beside the total."""
+    from repro_torch import configs
+
+    docs, entities = make_corpus(n_docs=30, n_entities=2, seed=3)
+    corpus = str(tmp_path / "corpus")
+    write_corpus_dir(corpus, docs)
+    queries = list(entities) + ["invoice payment"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--corpus", corpus, "--dim", "512", "--top-k", "2",
+                         "--device", "cpu", "--arch", arch,
+                         "--max-new-tokens", "3", "--queries", *queries])
+    assert rc == 0
+    out = buf.getvalue()
+    cfg = configs.get(arch).smoke_config
+    active = (f" ({cfg.active_param_count():,} active)"
+              if cfg.moe is not None else "")
+    assert f"generator: {cfg.name}, {cfg.param_count():,} params{active} " \
+        in out
+    assert out.count("  generated token ids: [") == len(queries)
+    assert f"generation: {len(queries)} requests" in out
+    for code, doc in entities.items():
+        assert _printed(out)[code][0][:2] == (f"doc_{doc:05d}.txt", True)
+
+
 def test_serve_without_a_card_and_without_device_raises(tmp_path,
                                                         monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -314,6 +343,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.tenancy, repro_torch.examples.quickstart\n"
         "import repro_torch.examples.live_sync\n"
         "import repro_torch.examples.multi_tenant\n"
+        "import repro_torch.examples.rag_serve\n"
+        "import repro_torch.models.moe, repro_torch.models.mla\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

@@ -5,15 +5,18 @@ same functions are captured into CUDA graphs and replayed, which
 
 - ``make_lm_prefill_step``/``make_lm_decode_step`` against the JAX
   package's steps (``make_host_mesh(1)``, ``jax.jit``) on the SMOKE
-  configs of llama3.2-3b, gemma2-9b and gemma3-27b, logits within 5e-4
-  of the largest (``tests/test_torch_lm.py``'s tolerance: f32, summation
-  order);
+  configs of the five LM archs (MoE and MLA included), logits and caches
+  within 5e-4 of the largest (``tests/test_torch_lm.py``'s tolerance:
+  f32, summation order);
 - a right-padded prefill against the unpadded one in the port, ring
-  layers included (window 16, prompts of 30 and 17 padded to 64);
+  layers, MoE routing of the padding and MLA caches included (window
+  16, prompts of 30 and 17 padded to 64);
+- ``GenerationSteps`` over GQA, MoE and MLA caches;
 - ``build_cell`` against the JAX package's cell ``fn`` on the same
-  concrete arrays (llama3.2-3b SMOKE prefill_32k and decode_32k, cut in
-  batch and seq; dlrm-rm2 and deepfm SMOKE serve_p99 and retrieval_cand
-  at their full shapes, rtol/atol 1e-5 as `tests/test_torch_recsys.py`);
+  concrete arrays (llama3.2-3b, qwen3-moe-30b-a3b and
+  deepseek-v2-lite-16b SMOKE prefill_32k and decode_32k, cut in batch
+  and seq; dlrm-rm2 and deepfm SMOKE serve_p99 and retrieval_cand at
+  their full shapes, rtol/atol 1e-5 as `tests/test_torch_recsys.py`);
 - the kinds that are not ported, and the launch-count arithmetic a
   captured step applies.
 """
@@ -36,7 +39,7 @@ from repro_torch.launch import steps
 from repro_torch.models import transformer as T
 from repro_torch.models.recsys import base
 
-from test_torch_lm import DENSE_ARCHS, _carried, _close, _tokens, port_config
+from test_torch_lm import LM_ARCHS, _carried, _close, _tokens, port_config
 
 # the suite runs test files in parallel workers: keep this file's torch
 # ops on one thread so they do not starve the other workers
@@ -61,7 +64,7 @@ def _ref_caches(caches, cfg):
         out["scan"] = {
             f"l{j}": {name: np.stack([flat[nh + u * p + j][name]
                                       for u in range(cfg.n_units)])
-                      for name in ("k", "v")}
+                      for name in flat[0]}
             for j in range(p)}
     return out
 
@@ -80,7 +83,7 @@ def _close_caches(got, want, cfg, slots, label):
 # the LM steps against the JAX package's
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_lm_prefill_and_decode_steps_match_jax(arch):
     rc, params, cfg, model = _carried(arch)
     b, l, max_len = 2, 24, 40
@@ -109,12 +112,13 @@ def test_lm_prefill_and_decode_steps_match_jax(arch):
     _close_caches(caches, ref_caches, cfg, l + 2, f"{arch} decode steps")
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_padded_prefill_equals_unpadded_prefill(arch):
     """Prompts of 30 and 17 tokens right-padded to 64 in one batch: the
     logits at each row's last real position, the cache slots of its real
     positions (a ring layer's every slot: both prompts pass its window of
-    16) and one decode step after it equal each prompt prefilled alone."""
+    16) and one decode step after it equal each prompt prefilled alone
+    (MoE layers route the padding too, and each token on its own)."""
     _, _, cfg, model = _carried(arch)
     real, bucket, max_len = (30, 17), 64, 70
     toks = _tokens(cfg.vocab, (2, bucket + 1), seed=12)
@@ -129,12 +133,13 @@ def test_padded_prefill_equals_unpadded_prefill(arch):
         alone.append((a, want_len))
         _close(logits[r].numpy(), want[0, -1].numpy(), f"row {r} logits")
         for i, (kind, c, w) in enumerate(zip(cfg.layer_kinds, caches, a)):
-            ring = w["k"].shape[2] < max_len
-            assert ring == (kind == "local") == (c["k"].shape[2] < max_len)
-            slots = w["k"].shape[2] if ring else n
-            for name in ("k", "v"):
-                _close(c[name][r, :, :slots].numpy(),
-                       w[name][0, :, :slots].numpy(),
+            assert set(c) == set(w)
+            for name in c:
+                got, ref = T.slots_view(c[name]), T.slots_view(w[name])
+                ring = ref.shape[2] < max_len
+                assert ring == (kind == "local") == (got.shape[2] < max_len)
+                slots = ref.shape[2] if ring else n
+                _close(got[r, :, :slots].numpy(), ref[0, :, :slots].numpy(),
                        f"row {r} layer {i} {kind} {name}")
     nxt = torch.from_numpy(np.stack([toks[r, n:n + 1]
                                      for r, n in enumerate(real)]))
@@ -156,13 +161,17 @@ def test_prompt_buckets_are_powers_of_two_up_to_the_context():
             steps.prompt_bucket(bad, 512)
 
 
-def test_generation_steps_reuse_one_cache_and_step_per_bucket():
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-moe-30b-a3b",
+                                  "deepseek-v2-lite-16b"])
+def test_generation_steps_reuse_one_cache_and_step_per_bucket(arch):
     """On the CPU the steps run eagerly on their static buffers; two
     prompts of one bucket share its step, and each gives its own
-    unpadded prefill's logits."""
-    _, _, cfg, model = _carried("llama3.2-3b")
+    unpadded prefill's logits (GQA, MoE and MLA caches alike)."""
+    _, _, cfg, model = _carried(arch)
     gs = steps.GenerationSteps(model, cfg, max_context=100, max_new_tokens=3)
-    assert gs.max_len == 103 and gs.caches[0]["k"].shape[2] == 103
+    assert gs.max_len == 103
+    assert all(T.slots_view(t).shape[2] == 103
+               for c in gs.caches for t in c.values())
     for n, seed in ((70, 1), (90, 2), (20, 3)):
         prompt = _tokens(cfg.vocab, (1, n), seed=seed)
         bucket = gs.bucket(n)
@@ -192,8 +201,9 @@ def _load_lm_weights(model, params):
     ("prefill_32k", dict(batch=2, seq=48)),
     ("decode_32k", dict(batch=3, seq=40)),
 ])
-def test_lm_cells_match_the_jax_cells(shape_id, cuts):
-    arch = "llama3.2-3b"
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-moe-30b-a3b",
+                                  "deepseek-v2-lite-16b"])
+def test_lm_cells_match_the_jax_cells(arch, shape_id, cuts):
     rc, params, _, _ = _carried(arch)
     cell = steps.build_cell(arch, shape_id, smoke=True, device="cpu",
                             seed=4, **cuts)
@@ -221,8 +231,13 @@ def test_lm_cells_match_the_jax_cells(shape_id, cuts):
     else:
         _, caches, tokens, lengths = cell.args
         assert tokens.shape == (b, 1) and lengths.tolist() == [s] * b
-        assert caches[0]["k"].shape == (b, cfg.n_kv_heads, s, cfg.head_dim)
-        assert all(c["k"].abs().sum() > 0 for c in caches)  # seeded, full
+        if cfg.mla is None:
+            assert caches[0]["k"].shape == (b, cfg.n_kv_heads, s,
+                                            cfg.head_dim)
+        else:
+            assert caches[0]["c_kv"].shape == (b, s, cfg.mla.kv_lora_rank)
+        assert all(t.abs().sum() > 0
+                   for c in caches for t in c.values())  # seeded, full
         want, want_caches = ref_cell.fn(
             params, jax.tree.map(jnp.asarray, _ref_caches(caches, cfg)),
             jnp.asarray(tokens.numpy().astype(np.int32)),
