@@ -16,7 +16,9 @@ Phases (any failure raises and the script exits non-zero):
    top-k at the serving shape (N=65,536 docs, D=4,096, W=128 signature
    words, B=64 queries, k=16) and at its edges (ragged N, n_valid < N,
    k=128, k > n_valid, B=1, duplicated doc rows, ragged D=1,000, D=2 and
-   W=3 without 16-byte rows, B=100), and 16 queries at B=1 giving the
+   W=3 without 16-byte rows, B=100), on shard views (a row slice at an
+   odd row offset: D=4,096 keeps the 16-byte TMA path, D=1,001 takes the
+   4-byte copies), and 16 queries at B=1 giving the
    bits they get inside B=64; then flash attention at the serving shape
    (B=1, Hq=24, Hkv=8, L=512, Dh=128, bf16, causal, strided operands as
    the projections give them) and at its edges (ragged L, GQA 8:1 at
@@ -151,6 +153,30 @@ Phases (any failure raises and the script exits non-zero):
    replay's device idle share, the MoE layers' grouped products against
    their bound at T = 512 and 1, the flash kernel at the arch's shape
    against SDPA and its bound, and the peak allocated bytes.
+12. The sharded retrieval planes, on logical shards of the one card:
+   (a) ``build_sharded_retrieve`` on ragdb FULL (dim 4,096, W = 128,
+   k = 16, B = 64) at pod_16m's 65,536 docs a shard, S ∈ {1, 4}, whole
+   and ragged (1,000 zero rows on the last shard, masked through its
+   host ``n_valid``), the fused-kernel and the gemm legs against
+   ``single_device_reference`` (phase 2's near-tie rule for ids; kernel
+   scores within phase 2's tolerance, gemm scores within rtol 1e-6), S
+   kernel launches a call and 0 unfused; one launch over a 65,536-row
+   shard view timed against one over 262,144 rows and cuBLAS +
+   ``torch.topk`` at both shapes; the ragdb cells (pod_16m and edge_1k
+   at S ∈ {1, 4}, both legs) replayed bit-equal to their eager step.
+   (b) ``QueryEngine(index="ivf-sharded", guarantee="exact")`` on a
+   65,536-doc topical corpus at dim 4,096 for S ∈ {1, 2, 4, 8}: the
+   batch's ids, scores and cosines equal the flat map path bit for bit
+   at every S, with its time, widen rounds, probed fraction, merge
+   seconds and device idle share, and the plane's build seconds and
+   bytes; probe mode at nprobe 8; three add_text + publish rounds
+   through ``ServingRuntime``, still flat's bits; a flat-written IVF
+   state adopted by the sharded engines and the sharded-written state
+   by a flat IVF engine, with no retrain; the allocated bytes back at
+   the phase's baseline.  (c) The row-sharded recsys lookup at S = 4
+   runs inside phase 8, while the 48 GB table is resident: the lookup
+   at batch 512, the serve forward and the 1,000,448 candidate scores
+   bit-equal to the unsharded ones, no table copied.
 
 The second line from the end is a JSON ``kernels`` record; the last is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -422,6 +448,28 @@ def phase_kernel(torch, np, ops, ref):
         _log(f"  kernel == plain: {name:26s} N={n} D={d} W={w} B={b} k={k} "
              f"n_valid={n_valid} max |Δscore| {err:.3e}")
         del dv, ds, qv, qs
+    # shard views (phase 12's operands): a row slice of a larger corpus at
+    # an odd row offset; D = 4,096 keeps 16-byte rows and base (the TMA
+    # path), D = 1,001 takes the 4-byte copies
+    for d in (DIM, 1_001):
+        dv, ds, qv, qs = _make_operands(torch, gen, 20_011 + 7, d, SIG_WORDS,
+                                        BATCH)
+        view_v, view_s = dv[7:], ds[7:]
+        aligned = view_v.data_ptr() % 16 == 0 and d % 4 == 0
+        assert view_v.is_contiguous() and aligned == (d == DIM), d
+        kv, ki = ops.hsf_score_batched(view_v, view_s, qv, qs, k=TOP_K,
+                                       alpha=ALPHA, beta=BETA)
+        pv, pi = ref.hsf_score_topk_ref(view_v, view_s, qv, qs, ALPHA, BETA,
+                                        TOP_K + 32)
+        err = _check_against_plain(np, kv.cpu().numpy(), ki.cpu().numpy(),
+                                   pv.cpu().numpy(), pi.cpu().numpy(),
+                                   ops.ID_SENTINEL, f"shard view D={d}")
+        worst = max(worst, err)
+        _log(f"  kernel == plain: shard view at row 7 of {20_011 + 7} "
+             f"N=20011 D={d} W={SIG_WORDS} B={BATCH} k={TOP_K} (base "
+             f"{'16-byte aligned, TMA' if aligned else 'not 16-byte rows, 4-byte copies'}"
+             f") max |Δscore| {err:.3e}")
+        del dv, ds, qv, qs, view_v, view_s
     # a (query, doc) score depends on those two rows alone: 16 queries
     # scored one at a time give the bits they get inside a batch of 64
     dv, ds, qv, qs = _make_operands(torch, gen, N_DOCS, DIM, SIG_WORDS, BATCH)
@@ -1832,6 +1880,8 @@ def phase_recsys(torch, np, bag_ops, bag_ref, tk_ops, tk_ref):
          f"16 scores equal the CPU's within {RECSYS_TOL:g} (max |Δ| "
          f"{err:.3e}); step {retrieval_ms:.4f} ms (CUDA events, median; "
          "1.178 ms with the earlier k-round top-k)")
+    _sharded_lookup(torch, emb, dlrm, params, cfg, batches[SERVE_P99], query,
+                    cand)
 
     # (d) timings
     bag_timing = {b: _time_bag(torch, F, bag_ops, bag_ref, table,
@@ -3266,6 +3316,426 @@ def phase_lm_families(torch, T, steps, fa_ops, fa_ref, ctx):
              "the baseline")
     return out
 
+
+# ---------------------------------------------------------------------------
+# phase 12: the sharded retrieval planes
+# ---------------------------------------------------------------------------
+
+# configs/ragdb.py FULL at pod_16m's docs per device; the JAX package
+# lowers the cell on 256 devices, the card holds up to 4 logical shards
+SHARD_DOCS = 65_536
+SHARD_RAGGED = 1_000      # zero rows past the real docs on the last shard
+ENGINE_SHARDS = (1, 2, 4, 8)
+TOPICAL_ENTITIES = 32
+SHARD_ROUNDS = 3          # add_text + publish rounds through the runtime
+
+
+def _shard_bound_ms(n):
+    """The fused HSF top-k's bound at N docs (phase 4's formula):
+    (bytes ms, operations ms)."""
+    nbytes = 4 * (n * DIM + n * SIG_WORDS + BATCH * DIM + BATCH * SIG_WORDS) \
+        + 8 * BATCH * TOP_K
+    flops = 2 * BATCH * n * DIM
+    return nbytes / HBM_BYTES_PER_S * 1e3, 3 * flops / TF32_FLOPS_PER_S * 1e3
+
+
+def _shard_timings(torch, ops, ref, dv, ds, qv, qs):
+    """One kernel launch over a 65,536-row shard view and over the
+    262,144 rows of four, against cuBLAS + ``torch.topk`` at the same
+    shapes and the plain version at the shard's; device time of calls
+    queued back to back.  Returns the shard's timing record."""
+    view_v, view_s = dv[3 * SHARD_DOCS:], ds[3 * SHARD_DOCS:]
+    out = {}
+    for label, v, s in (("shard", view_v, view_s), ("whole", dv, ds)):
+        ind = ref.containment_matrix(s, qs)
+        kernel = lambda: ops.hsf_score_batched(  # noqa: E731
+            v, s, qv, qs, k=TOP_K, alpha=ALPHA, beta=BETA)
+        library = lambda: torch.topk(  # noqa: E731
+            ALPHA * (qv @ v.T) + BETA * ind, TOP_K)
+        kernel()
+        library()
+        torch.cuda.synchronize()
+        t = {"ms": _queued_ms(torch, kernel, 10, 10),
+             "library_ms": _queued_ms(torch, library, 10, 10)}
+        if label == "shard":
+            plain = lambda: ref.hsf_score_topk_ref(  # noqa: E731
+                v, s, qv, qs, ALPHA, BETA, TOP_K)
+            plain()
+            t["plain_ms"] = _queued_ms(torch, plain, 1, 5)
+        t["again_ms"] = _queued_ms(torch, kernel, 10, 10)
+        bytes_ms, ops_ms = _shard_bound_ms(v.shape[0])
+        t.update(bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        out[label] = t
+        del ind
+    sh, wh = out["shard"], out["whole"]
+    _log(f"  (a) timings: one launch over a {SHARD_DOCS:,}-row shard view "
+         f"{sh['ms']:.4f} ms (again {sh['again_ms']:.4f}; plain "
+         f"{sh['plain_ms']:.4f}, cuBLAS + torch.topk {sh['library_ms']:.4f}, "
+         f"bound {sh['bound_ms']:.4f} by {sh['bound_by']}: "
+         f"{sh['bound_ms'] / sh['ms']:.1%}); one launch over "
+         f"{4 * SHARD_DOCS:,} rows {wh['ms']:.4f} ms (again "
+         f"{wh['again_ms']:.4f}; cuBLAS + torch.topk {wh['library_ms']:.4f}, "
+         f"bound {wh['bound_ms']:.4f}: {wh['bound_ms'] / wh['ms']:.1%}); "
+         f"4 shard launches {4 * sh['ms']:.4f} ms = "
+         f"{4 * sh['ms'] / wh['ms']:.3f}x the one launch")
+    return sh
+
+
+def _sharded_retrieve_legs(torch, np, ops, ret, meshlib, dv, ds, qv, qs):
+    """``build_sharded_retrieve`` at S ∈ {1, 4} logical shards, whole and
+    ragged, kernel and gemm legs, held to ``single_device_reference``.
+    Returns (kernel launches on this path, largest kernel |Δscore|)."""
+    launches, worst = 0, 0.0
+    for n_shards in (1, 4):
+        mesh = meshlib.make_shard_mesh(n_shards, "cuda")
+        n_rows = n_shards * SHARD_DOCS
+        for ragged in (False, True):
+            n_docs = n_rows - (SHARD_RAGGED if ragged else 0)
+            pv, ps = dv[:n_rows], ds[:n_rows]
+            if ragged:
+                # the zero rows pad_corpus appends past the real docs
+                pv, ps = pv.clone(), ps.clone()
+                pv[n_docs:] = 0.0
+                ps[n_docs:] = 0
+            rv, ri = ret.single_device_reference(pv, ps, qv, qs, n_docs,
+                                                 TOP_K + 32)
+            rv, ri = rv.cpu().numpy(), ri.cpu().numpy()
+            for use_kernel in (True, False):
+                label = (f"S={n_shards} N={n_rows} n_docs={n_docs} "
+                         f"{'kernel' if use_kernel else 'gemm'}")
+                retrieve = ret.build_sharded_retrieve(
+                    mesh, meshlib.all_axes(mesh), n_docs, TOP_K, ALPHA, BETA,
+                    use_kernel=use_kernel)
+                ops.reset_counts()
+                vals, ids = retrieve(pv, ps, qv, qs)
+                torch.cuda.synchronize()
+                counts = dict(ops.counts)
+                want = {"launches": n_shards if use_kernel else 0,
+                        "unfused": 0}
+                assert counts == want, (label, counts)
+                launches += counts["launches"]
+                kv, ki = vals.cpu().numpy(), ids.cpu().numpy()
+                err = _check_against_plain(np, kv, ki, rv, ri,
+                                           ops.ID_SENTINEL, label)
+                assert int(ki.max()) < n_docs, label
+                if use_kernel:
+                    worst = max(worst, err)
+                else:
+                    np.testing.assert_allclose(kv, rv[:, :TOP_K], rtol=1e-6,
+                                               atol=0, err_msg=label)
+                same = int((ki == ri[:, :TOP_K]).sum())
+                _log(f"  (a) {label}: {counts['launches']} launch(es), 0 "
+                     "unfused; ids "
+                     f"equal the oracle's at {same} of {ki.size} positions "
+                     f"(the rest within near-ties of {SCORE_ATOL:g}); max "
+                     f"|Δscore| {err:.3e}")
+            del pv, ps
+    return launches, worst
+
+
+def _ragdb_cells(torch, ops, steps):
+    """The ragdb cells captured and replayed bit-equal to their eager
+    step; the kernel leg's launches a replay.  Returns (launches over
+    the replays, {label: (eager ms, replay ms)})."""
+    launches, times = 0, {}
+    for shape_id in ("pod_16m", "edge_1k"):
+        for n_shards in (1, 4):
+            for use_kernel in (True, False):
+                cell = steps.build_cell("ragdb", shape_id, device="cuda",
+                                        n_shards=n_shards,
+                                        use_kernel=use_kernel, seed=12)
+                label = (f"{shape_id} S={n_shards} "
+                         f"{'kernel' if use_kernel else 'gemm'}")
+                eager = [t.clone() for t in cell.fn.fn(*cell.args)]
+                cell.fn.capture()
+                ops.reset_counts()
+                vals, ids = cell.fn()
+                torch.cuda.synchronize()
+                want = n_shards if use_kernel else 0
+                assert ops.counts == {"launches": want, "unfused": 0}, \
+                    (label, ops.counts)
+                launches += want
+                assert torch.equal(vals, eager[0]) and \
+                    torch.equal(ids, eager[1]), label
+                if shape_id == "pod_16m":
+                    e, r, turns = _in_turns(
+                        torch, lambda: cell.fn.fn(*cell.args), cell.fn, 10)
+                    times[label] = (e, r)
+                    _log(f"  (a) cell {label} ({cell.meta['n_docs']:,} docs, "
+                         f"reduced {cell.meta['reduced']}): replay == eager "
+                         f"bit for bit, {want} launch(es) a replay; eager "
+                         f"{e:.4f} ms, replay {r:.4f} ms (CUDA events, "
+                         "median of 10, in turns "
+                         f"{', '.join(f'{x:.4f}' for x in turns)})")
+                else:
+                    _log(f"  (a) cell {label} ({cell.meta['n_docs']:,} docs): "
+                         f"replay == eager bit for bit, {want} launch(es) a "
+                         "replay")
+                del cell, eager, vals, ids
+    return launches, times
+
+
+def phase_sharded_retrieve(torch, np, ops, ref, steps):
+    """(a) ``build_sharded_retrieve`` on ragdb FULL at pod_16m's 65,536
+    docs a shard: S ∈ {1, 4}, whole and ragged, both legs against the
+    oracle; the per-shard kernel timed; the ragdb cells replayed.
+    Returns (the kernel's launches on this path, its largest |Δscore|,
+    the shard's timing record)."""
+    from repro_torch.core import retrieval as ret
+    from repro_torch.launch import mesh as meshlib
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    dv, ds, qv, qs = _make_operands(torch, gen, 4 * SHARD_DOCS, DIM,
+                                    SIG_WORDS, BATCH)
+    _log(f"  (a) corpus {4 * SHARD_DOCS:,} x {DIM} f32 "
+         f"({dv.numel() * 4 / 1e9:.2f} GB) + signatures "
+         f"({ds.numel() * 4 / 1e6:.0f} MB), {BATCH} queries, k={TOP_K}")
+    launches, worst = _sharded_retrieve_legs(torch, np, ops, ret, meshlib,
+                                             dv, ds, qv, qs)
+    timing = _shard_timings(torch, ops, ref, dv, ds, qv, qs)
+    del dv, ds, qv, qs
+    torch.cuda.empty_cache()
+    cell_launches, _ = _ragdb_cells(torch, ops, steps)
+    return launches + cell_launches, worst, timing
+
+
+def _topical_kb(tmp):
+    """A topical corpus of SHARD_DOCS docs at dim 4,096, ingested on the
+    host and saved with its matrix; its first half of entity codes and
+    one query per topic (three core words) make a 64-query batch."""
+    from repro_torch.core.ingest import KnowledgeBase
+    from repro_torch.data.corpus import make_topical_corpus
+
+    t0 = time.perf_counter()
+    docs, entities, cores = make_topical_corpus(
+        n_docs=SHARD_DOCS, n_entities=TOPICAL_ENTITIES, seed=3)
+    kb = KnowledgeBase(dim=DIM)
+    for i, d in enumerate(docs):
+        kb.add_text(f"doc_{i:05d}.txt", d)
+    t1 = time.perf_counter()
+    path = str(Path(tmp) / "topical.ragdb")
+    kb.save(path)
+    _log(f"  (b) topical corpus: {SHARD_DOCS:,} docs ingested in "
+         f"{t1 - t0:.1f} s, saved with its matrix in "
+         f"{time.perf_counter() - t1:.1f} s")
+    queries = list(entities) + [" ".join(c[:3]) for c in cores]
+    return path, entities, queries[:BATCH]
+
+
+def _same_batch(a, b, label):
+    assert len(a) == len(b), label
+    for i, (x, y) in enumerate(zip(a, b)):
+        _same_results(x, y, (label, i))
+
+
+def _sharded_engine_at(torch, kb, queries, want, n_shards):
+    """One sharded exact engine on ``kb`` (adopting its state): the plane
+    rebuilt and timed, the batch's bits against flat, its time, stats
+    and idle share."""
+    from repro_torch.core.engine import QueryEngine
+    from repro_torch.index import ShardedIVFIndex
+
+    eng = QueryEngine(kb, device="cuda", index="ivf-sharded",
+                      guarantee="exact", n_shards=n_shards)
+    assert eng.retrains == 0 and eng.scoring_path == "map", eng.retrains
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plane = ShardedIVFIndex.from_base(eng.ivf.base, eng.doc_vecs,
+                                      eng.doc_sigs, n_shards=n_shards)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 plane.dv_blocks + plane.ds_blocks + plane.gid_blocks)
+    del plane
+    _same_batch(eng.query_batch(queries, k=TOP_K), want, f"S={n_shards}")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng.query_batch(queries, k=TOP_K)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    st = eng.index_stats()
+    # one query per call, where the probe can prune: 8 entity codes and
+    # 8 topical queries, each against its flat result
+    single = {"ms": [], "fraction": [], "rounds": []}
+    for q, w in list(zip(queries, want))[:8] + list(zip(queries, want))[-8:]:
+        t0 = time.perf_counter()
+        res = eng.query_batch([q], k=TOP_K)[0]
+        single["ms"].append((time.perf_counter() - t0) * 1e3)
+        _same_results(res, w, (n_shards, q))
+        one = eng.index_stats()
+        single["fraction"].append(one["probed_fraction"])
+        single["rounds"].append(one["rounds"])
+    idle = _profile(torch, lambda: eng.query_batch(queries, k=TOP_K), wall,
+                    f"one sharded exact batch at S={n_shards}", "add",
+                    "the add tree (elementwise adds)")
+    _log(f"  (b) S={n_shards} ({eng.ivf.placement}): {len(queries)} queries "
+         f"equal the flat map path bit for bit (ids, scores, cosines, "
+         f"boosts); batch {wall:.1f} ms (median of 3, host clock; "
+         f"{', '.join(f'{w:.1f}' for w in walls)}); widen rounds "
+         f"{st['rounds']}, probed fraction {st['probed_fraction']:.3%}, "
+         f"candidate rows {st['candidate_rows']:,}, merge "
+         f"{st['merge_seconds'] * 1e3:.3f} ms; shard rows "
+         f"{eng.ivf.shard_sizes()}, block {eng.ivf.block_len:,} rows; plane "
+         f"build {build_s:.3f} s, {nbytes / 1e9:.3f} GB; device idle "
+         f"{'not measured' if idle is None else f'{idle:.1%}'}")
+    _log(f"  (b) S={n_shards}, one query per call (8 entity codes, 8 topical "
+         f"queries; each equal to its flat result bit for bit): median "
+         f"{statistics.median(single['ms']):.1f} ms; probed fraction mean "
+         f"{statistics.mean(single['fraction'][:8]):.1%} (entity), "
+         f"{statistics.mean(single['fraction'][8:]):.1%} (topical); widen "
+         f"rounds mean {statistics.mean(single['rounds']):.2f}, max "
+         f"{max(single['rounds'])}")
+    return eng
+
+
+def _sharded_probe(kb, entities, queries, want):
+    """Probe mode at nprobe 8 on 4 shards: entity Recall@1, and the
+    scores it shares with flat equal bit for bit."""
+    from repro_torch.core.engine import QueryEngine
+
+    eng = QueryEngine(kb, device="cuda", index="ivf-sharded", nprobe=8,
+                      n_shards=4)
+    assert eng.retrains == 0
+    res = eng.query_batch(queries, k=TOP_K)
+    st = eng.index_stats()
+    hits = sum(r[0].doc_id == f"doc_{entities[q]:05d}.txt"
+               for q, r in zip(queries, res) if q in entities)
+    shared = 0
+    for a, b in zip(res, want):
+        fs = {r.doc_id: r.score for r in b}
+        for r in a:
+            if r.doc_id in fs:
+                assert r.score == fs[r.doc_id], (r, fs[r.doc_id])
+                shared += 1
+    n_ent = sum(q in entities for q in queries)
+    assert hits >= 0.9 * n_ent, (hits, n_ent)
+    _log(f"  (b) probe nprobe=8, S=4: entity Recall@1 {hits / n_ent:.3f}, "
+         f"probed fraction {st['probed_fraction']:.3%}, {shared} (query, "
+         "doc) scores shared with flat, equal bit for bit")
+
+
+def _sharded_runtime(kb, queries, flat):
+    """SHARD_ROUNDS add_text + publish rounds through a ServingRuntime on
+    4 shards: after each, the served batch (with the new docs' codes)
+    equals the flat map engine on the same KB bit for bit."""
+    from repro_torch.serving import ServingRuntime
+
+    runtime = ServingRuntime(kb, max_batch=BATCH, index="ivf-sharded",
+                             guarantee="exact", n_shards=4, device="cuda",
+                             result_cache_size=0)
+    codes = []
+    with runtime:
+        for rnd in range(SHARD_ROUNDS):
+            for j in range(4):
+                code = f"LIVE-{rnd}{j}-7777"
+                codes.append(code)
+                kb.add_text(f"live_{rnd}_{j}.txt",
+                            f"fresh record {code} about "
+                            f"{queries[TOPICAL_ENTITIES + j]}")
+            t0 = time.perf_counter()
+            gen = runtime.publish()
+            publish_s = time.perf_counter() - t0
+            batch = (codes + queries)[:BATCH]
+            got = runtime.query_batch(batch, k=TOP_K)
+            want = flat.query_batch(batch, k=TOP_K)
+            _same_batch(got, want, f"round {rnd}")
+            assert all(got[i][0].doc_id.startswith("live_")
+                       for i in range(min(len(codes), len(batch)))), rnd
+            _log(f"  (b) runtime round {rnd}: 4 docs added, generation "
+                 f"{gen} published in {publish_s:.2f} s; {len(batch)} "
+                 "served results equal the flat map engine bit for bit, "
+                 "the new codes first")
+        assert runtime.snapshots.current.ivf is runtime.engine.ivf
+    return runtime.engine
+
+
+def phase_sharded_engine(torch, np, tmp):
+    """(b) ``QueryEngine(index="ivf-sharded", guarantee="exact")`` on a
+    topical corpus at S ∈ {1, 2, 4, 8}, against the flat map path; probe
+    mode; live rounds through the runtime; containers adopted both ways
+    with no retrain; allocated bytes back at the baseline."""
+    from repro_torch.core.engine import QueryEngine
+    from repro_torch.core.ingest import KnowledgeBase
+
+    baseline = _allocated(torch)
+    path, entities, queries = _topical_kb(tmp)
+    # a flat-IVF engine trains and writes a flat state; every sharded
+    # engine below adopts it (flat-written → sharded)
+    kb = KnowledgeBase.load(path)
+    t0 = time.perf_counter()
+    trained = QueryEngine(kb, device="cuda", index="ivf", guarantee="exact")
+    assert trained.retrains == 1 and "n_shards" not in kb.index_state
+    _log(f"  (b) flat IVF engine trained in {time.perf_counter() - t0:.2f} s "
+         f"({trained.ivf.n_clusters} clusters); its state is the one the "
+         "sharded engines adopt")
+    kb.save(path)
+    del trained
+    kb = KnowledgeBase.load(path)
+    flat = QueryEngine(kb, device="cuda", scoring_path="map")
+    want = flat.query_batch(queries, k=TOP_K)
+    for n_shards in ENGINE_SHARDS:
+        eng = _sharded_engine_at(torch, kb, queries, want, n_shards)
+        del eng
+    _sharded_probe(kb, entities, queries, want)
+    engine = _sharded_runtime(kb, queries, flat)
+    # sharded-written → flat IVF: the runtime's engine wrote its state
+    assert int(kb.index_state["n_shards"]) == 4
+    saved = str(Path(tmp) / "topical_sharded.ragdb")
+    kb.save(saved)
+    adopted = QueryEngine(KnowledgeBase.load(saved), device="cuda",
+                          index="ivf", guarantee="exact", scoring_path="map")
+    assert adopted.retrains == 0, adopted.retrains
+    assert np.array_equal(adopted.ivf.assign, engine.ivf.assign)
+    batch = queries[:16]
+    _same_batch(adopted.query_batch(batch, k=TOP_K),
+                flat.query_batch(batch, k=TOP_K), "flat IVF adopted")
+    _log("  (b) containers: the flat-written state adopted by the sharded "
+         "engines at every S (retrains 0), and the runtime's sharded-written "
+         "state adopted by a flat IVF engine (retrains 0, same assignments, "
+         "flat bits)")
+    del adopted, engine, flat, kb, want
+    above = _allocated(torch) - baseline
+    assert above < FAMILY_LEAK_BYTES, above
+    _log(f"  (b) engines freed: allocated bytes {above / 1e6:+.3f} MB from "
+         f"the phase's baseline ({baseline / 1e6:.3f} MB)")
+
+
+def _sharded_lookup(torch, emb, dlrm, params, cfg, batch, query, cand):
+    """Phase 12 (c), run here while dlrm-rm2's table is resident: the
+    row-sharded lookup at S = 4 (views of the one table) bit-equal to
+    the unsharded one, for the lookup, a serve forward at batch 512 and
+    the 1,000,448-candidate scores."""
+    from repro_torch.launch.mesh import make_shard_mesh
+
+    table = params["table"]
+    offs = emb.cached_offsets(cfg.vocab_sizes, table.device)
+    sparse, dense = batch["sparse_idx"], batch["dense"]
+    plain = (emb.lookup(table, offs, sparse),
+             dlrm.forward(params, dense, sparse, cfg),
+             dlrm.retrieval_scores(params, query, cand, cfg))
+    before = torch.cuda.memory_allocated()
+    with emb.sharding_ctx(make_shard_mesh(4, "cuda")):
+        sharded = (emb.lookup(table, offs, sparse),
+                   dlrm.forward(params, dense, sparse, cfg),
+                   dlrm.retrieval_scores(params, query, cand, cfg))
+        torch.cuda.synchronize()
+        lookup_ms = _median_ms(torch, lambda: emb.lookup(table, offs, sparse),
+                               20)
+    for name, a, b in zip(("lookup", "forward", "retrieval scores"), plain,
+                          sharded):
+        assert torch.equal(a, b), name
+    extra = torch.cuda.memory_allocated() - before
+    plain_ms = _median_ms(torch, lambda: emb.lookup(table, offs, sparse), 20)
+    _log(f"  phase 12 (c), here while the {table.numel() * 4 / 1e9:.2f} GB "
+         f"table is resident: row-sharded lookup at S=4 (views of the one "
+         f"table, {extra / 1e6:+.1f} MB allocated after) bit-equal to the "
+         f"unsharded one for the lookup at batch {sparse.shape[0]}, the "
+         f"serve forward and {cand.shape[0]:,} candidate scores; lookup "
+         f"{lookup_ms:.4f} ms sharded, {plain_ms:.4f} ms unsharded (CUDA "
+         "events, median of 20)")
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -3383,11 +3853,17 @@ def main() -> int:
                     f"{', '.join(LM_FAMILIES)})"):
             families = phase_lm_families(torch, T, steps, fa_ops, fa_ref, ctx)
         del ctx
+
+        with _phase("phase 12: the sharded retrieval planes (ragdb FULL, "
+                    f"{SHARD_DOCS:,} docs a shard)"):
+            shard_launches, shard_err, shard_timing = phase_sharded_retrieve(
+                torch, np, ops, ref, steps)
+            phase_sharded_engine(torch, np, tmp)
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     _log(f"card: {card}")  # again, near the end, for readers of the tail
 
     _log(f"hsf_score_topk launches on its paths: phase 3 {launches}, "
-         f"phase 10 (A) {mt_launches}")
+         f"phase 10 (A) {mt_launches}, phase 12 {shard_launches}")
     fa_paths = {"phase3": fa_launches, **{
         f"phase11_{arch}": f["launches"] for arch, f in families.items()}}
     fa_shapes = {name: t for f in families.values()
@@ -3398,11 +3874,14 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/hsf_topk.cu",
         "replaces": "src/repro/kernels/hsf_score/hsf_score.py:205",
-        # the sum over its two paths, each counted from 0 in this run
-        "launches": launches + mt_launches,
-        "launches_by_path": {"phase3": launches, "phase10_A": mt_launches},
-        "max_abs_err": max_err,
+        # the sum over its paths, each counted from 0 in this run
+        "launches": launches + mt_launches + shard_launches,
+        "launches_by_path": {"phase3": launches, "phase10_A": mt_launches,
+                             "phase12": shard_launches},
+        "max_abs_err": max(max_err, shard_err),
         **timing,
+        # phase 12's shard shape: one launch over a 65,536-row shard view
+        "by_shape": {"shard_65536": shard_timing},
     }, {
         "name": "flash_attention",
         "route": "cuda",

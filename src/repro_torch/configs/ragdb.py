@@ -8,8 +8,7 @@ shard the corpus over the mesh):
     multipod_33m 33.5M docs × 512 devices
 
 The same values as the JAX package's ``configs/ragdb.py``; the sharded
-cells that use them come with the multi-device planes (ROADMAP Queue 1
-item 8).
+cells that use them are ``launch/steps.build_ragdb_cell``.
 """
 from dataclasses import dataclass
 

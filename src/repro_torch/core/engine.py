@@ -44,8 +44,12 @@ and adds three things a multi-user deployment needs:
    (reassign-on-refresh, drift-triggered retrain) and persists via
    ``kb.index_state`` in the JAX package's format, so either package
    adopts the other's trained index without a retrain.
-   ``index="ivf-sharded"`` raises ``NotImplementedError`` until the
-   multi-device slice of the port.
+   ``index="ivf-sharded"`` partitions the clusters over a shard mesh
+   (index/sharded.py; ``n_shards``, by default the CUDA device count on
+   the card and 1 on the CPU): each shard reranks its own clusters'
+   rows with the bit-stable map formulation on its device, and the
+   per-shard top-k lists merge stably on the host — the same guarantees
+   as ``"ivf"``, applied per shard.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no card present it raises (no silent CPU
@@ -65,6 +69,7 @@ from repro_torch.analysis import sanitizers
 from repro_torch.core import hsf, signature as sigmod
 from repro_torch.core.ingest import KnowledgeBase
 from repro_torch.core.tokenizer import normalize
+from repro_torch.launch.mesh import default_shards
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import global_registry
 
@@ -348,6 +353,11 @@ def _record_ivf_stats(s) -> None:
                 "candidate rows gathered for rerank").inc(
         int(s.candidate_rows))
     reg.counter("ragdb_ivf_searches_total", "ivf dispatches").inc()
+    merge_s = getattr(s, "merge_seconds", None)
+    if merge_s is not None:
+        reg.histogram("ragdb_ivf_merge_seconds",
+                      "sharded local-top-k merge per dispatch").record(
+            float(merge_s))
 
 
 def _pad_row_update(rows: np.ndarray, block: np.ndarray):
@@ -379,8 +389,7 @@ class QueryEngine:
     ``add_text``/``sync``/removal; refresh cost is O(changed docs).
     """
 
-    INDEX_KINDS = ("flat", "ivf")
-    UNPORTED_INDEX_KINDS = ("ivf-sharded",)
+    INDEX_KINDS = ("flat", "ivf", "ivf-sharded")
     GUARANTEES = ("probe", "exact")
 
     def __init__(
@@ -402,11 +411,6 @@ class QueryEngine:
         n_shards: int | None = None,
         device=None,
     ):
-        if index in self.UNPORTED_INDEX_KINDS or n_shards is not None:
-            raise NotImplementedError(
-                "index='ivf-sharded' and n_shards belong to the multi-device "
-                "slice of the PyTorch port (ROADMAP Queue 1 item 8), which "
-                "is not ported yet; use index='flat' or 'ivf'")
         if index not in self.INDEX_KINDS:
             raise ValueError(
                 f"index must be one of {self.INDEX_KINDS}, got {index!r}")
@@ -429,19 +433,48 @@ class QueryEngine:
         # "ivf" probes the top-`nprobe` clusters and reranks candidates
         # with the exact HSF; `guarantee="exact"` widens probes until the
         # top-k provably equals the flat scan (bit-identical).
+        # "ivf-sharded" partitions the clusters over a shard mesh
+        # (`n_shards`): each shard reranks its own cluster subset on its
+        # device and only [B, k] candidates merge — the same guarantees,
+        # applied per shard.
         self.index = index
         self.nprobe = int(nprobe)
         self.guarantee = guarantee
         self.n_clusters = n_clusters
         self.retrain_drift = float(retrain_drift)
         self.ivf_seed = int(ivf_seed)
-        self.ivf = None  # IVFIndex | None (see refresh)
+        self.ivf = None  # IVFIndex | ShardedIVFIndex | None (see refresh)
         self._last_index_stats = None
         self.retrains = 0  # cumulative k-means (re)trains this engine ran
         self.scoring_path = resolve_scoring_path(
             scoring_path, use_kernel=use_kernel, gemm_batch=gemm_batch,
             device=self.device,
         )
+        if index == "ivf-sharded":
+            if n_shards is not None and n_shards < 1:
+                raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+            # the per-shard local rerank always scores with the
+            # bit-stable map formulation ("auto" coerces; an explicit
+            # gemm/kernel request would silently change numerics, so it
+            # is rejected rather than ignored)
+            if self.scoring_path != "map":
+                if scoring_path == "auto" and not use_kernel \
+                        and not gemm_batch:
+                    self.scoring_path = "map"
+                else:
+                    raise ValueError(
+                        "index='ivf-sharded' reranks with the bit-stable "
+                        "map formulation; scoring_path must be 'map' or "
+                        f"'auto', got {self.scoring_path!r}"
+                    )
+            self.n_shards = int(n_shards) if n_shards is not None \
+                else default_shards(self.device)
+        else:
+            if n_shards is not None:
+                raise ValueError(
+                    "n_shards is only meaningful with index='ivf-sharded'"
+                )
+            self.n_shards = None
         self.use_kernel = self.scoring_path == "kernel"
         self.gemm_batch = self.scoring_path == "gemm"
         self.cache_size = cache_size
@@ -474,11 +507,11 @@ class QueryEngine:
     def refresh(self) -> RefreshStats:
         """Bring device tensors up to date with the KB (O(changed docs)).
 
-        When ``index="ivf"`` the cluster index rides the same dirty-row
-        delta: changed docs reassign to their nearest centroid (O(U)),
-        layout restacks remap assignments by doc id, and the drift
-        counter triggers a full k-means retrain past ``retrain_drift``
-        (see ``_sync_ivf``).
+        When ``index`` is ``"ivf"`` or ``"ivf-sharded"`` the cluster
+        index rides the same dirty-row delta: changed docs reassign to
+        their nearest centroid (O(U)), layout restacks remap assignments
+        by doc id, and the drift counter triggers a full k-means retrain
+        past ``retrain_drift`` (see ``_sync_ivf``).
         """
         t0 = time.perf_counter()
         kb = self.kb
@@ -622,8 +655,17 @@ class QueryEngine:
         ``kb.index_state`` so ``save``/``save_delta`` persist it.
         """
         from repro_torch.index.ivf import IVFIndex, ids_digest
+        from repro_torch.index.sharded import ShardedIVFIndex
+
+        sharded = self.index == "ivf-sharded"
 
         def _train():
+            if sharded:
+                return ShardedIVFIndex.train(
+                    self.doc_vecs, self.doc_sigs,
+                    n_clusters=self.n_clusters, seed=self.ivf_seed,
+                    n_shards=self.n_shards,
+                )
             return IVFIndex.train(
                 self.doc_vecs, self.doc_sigs,
                 n_clusters=self.n_clusters, seed=self.ivf_seed,
@@ -641,8 +683,17 @@ class QueryEngine:
                 # the key covers doc ids AND content hashes: a stale
                 # state (doc rewritten in place with no live index
                 # maintenance) must never adopt — its sig_union/radius
-                # could underestimate a cluster and break exactness
-                self.ivf = IVFIndex.from_state(st)
+                # could underestimate a cluster and break exactness.
+                # Both kinds persist kind="ivf": a sharded engine adopts
+                # flat-written state (deriving its deterministic
+                # partition) and vice versa — bit-identical, no retrain
+                if sharded:
+                    self.ivf = ShardedIVFIndex.from_state(
+                        st, self.doc_vecs, self.doc_sigs,
+                        n_shards=self.n_shards,
+                    )
+                else:
+                    self.ivf = IVFIndex.from_state(st)
                 return
             self.ivf = _train()
             stats.index_retrained = True
@@ -663,12 +714,23 @@ class QueryEngine:
             stats.index_reassigned = int(np.sum(carried < 0))
         elif changed_ids:
             # O(U) path: gather only the dirty rows on the device before
-            # the host copy — never a full [N, ·] device→host copy
+            # the host copy — never a full [N, ·] device→host copy.
+            # The sharded plane additionally routes each dirty row to
+            # its owning shard's resident block (index/sharded.py), so
+            # it takes the live doc tensors for cross-shard regathers
             rows = np.array([self._row_of[i] for i in changed_ids], np.int32)
             rows_t = torch.from_numpy(rows.astype(np.int64)).to(self.device)
-            self.ivf = self.ivf.reassign(
-                rows, self.doc_vecs.index_select(0, rows_t),
-                self.doc_sigs.index_select(0, rows_t))
+            row_vecs = self.doc_vecs.index_select(0, rows_t)
+            row_sigs = self.doc_sigs.index_select(0, rows_t)
+            if sharded:
+                # reweighted => the refresh rebuilt every doc vector
+                # (idf moved), so the resident blocks regather in full;
+                # otherwise only the dirty rows patch (O(U))
+                self.ivf = self.ivf.reassign(
+                    rows, row_vecs, row_sigs, self.doc_vecs, self.doc_sigs,
+                    reweighted=stats.reweighted)
+            else:
+                self.ivf = self.ivf.reassign(rows, row_vecs, row_sigs)
             stats.index_reassigned = len(rows)
         else:
             return  # metadata-only mutation: index untouched
@@ -697,8 +759,7 @@ class QueryEngine:
 
     def index_stats(self) -> dict:
         """Probe accounting of the most recent ivf dispatch (None fields
-        when the engine is flat or hasn't served an ivf query yet; the
-        sharded plane's fields stay None until it is ported)."""
+        when the engine is flat or hasn't served an ivf query yet)."""
         s = self._last_index_stats
         return {
             "index": self.index,
@@ -709,8 +770,9 @@ class QueryEngine:
             "clusters_probed": s.clusters_probed if s else None,
             "candidate_rows": s.candidate_rows if s else None,
             "rounds": s.rounds if s else None,
-            "n_shards": None,
-            "merge_seconds": None,
+            # distribution terms (None unless the sharded plane served)
+            "n_shards": getattr(s, "n_shards", None) if s else None,
+            "merge_seconds": getattr(s, "merge_seconds", None) if s else None,
         }
 
     # ---- query-vector cache --------------------------------------------

@@ -2,14 +2,13 @@
 (PyTorch port of the JAX package's ``core/retrieval.py``).
 
 Sharding design (docs/ARCHITECTURE.md §4): documents are
-range-partitioned over the devices; per query each device computes its
-local HSF scores and local top-k, and a global top-k merge of the
-gathered (k vals, k ids) pairs follows — an O(k · n_shards) payload,
-independent of corpus size.  Ties are broken by document index (lower
-wins) so the sharded result equals the single-device one exactly.  The
-multi-device plane itself (``build_sharded_retrieve``) comes with the
-multi-device slice of the port and raises until then; its oracle
-``single_device_reference`` and helper ``pad_corpus`` are here.
+range-partitioned over the shards of a shard mesh (``launch/mesh.py``:
+one device per shard, or logical shards on one device); per query each
+shard computes its local HSF scores and local top-k, and a global top-k
+merge of the gathered (k vals, k ids) pairs follows — an O(k · n_shards)
+payload, independent of corpus size.  Ties are broken by document index
+(lower wins) so the sharded result equals the single-device one
+exactly (``single_device_reference`` is the oracle).
 
 The single-process ``Retriever`` is a thin wrapper over the batched
 ``QueryEngine`` (core/engine.py) — the serving-time entry point with
@@ -194,13 +193,98 @@ def pad_corpus(
     return doc_vecs, doc_sigs, n
 
 
-def build_sharded_retrieve(*args, **kwargs):
-    """The mesh-sharded retriever: per-device local HSF top-k and a
-    global stable merge.  Ported with the multi-device slice."""
-    raise NotImplementedError(
-        "build_sharded_retrieve belongs to the multi-device slice of the "
-        "PyTorch port (ROADMAP Queue 1 item 8), which is not ported yet; "
-        "single_device_reference is its oracle")
+def shard_corpus(doc_vecs, doc_sigs, mesh):
+    """The padded corpus as per-shard row blocks, one on each mesh
+    device: ``(vecs, sigs)``, tuples of S tensors.  A shard whose device
+    holds the corpus gets a row slice of it (a view, no copy); N must be
+    divisible by S (``pad_corpus``)."""
+    n_shards = len(mesh)
+    n = doc_vecs.shape[0]
+    if n % n_shards:
+        raise ValueError(f"{n} doc rows do not divide over {n_shards} "
+                         "shards; pad the corpus with pad_corpus first")
+    per = n // n_shards
+    vecs, sigs = [], []
+    for s, dev in enumerate(mesh):
+        vecs.append(doc_vecs[s * per:(s + 1) * per].to(dev))
+        sigs.append(doc_sigs[s * per:(s + 1) * per].to(dev))
+    return tuple(vecs), tuple(sigs)
+
+
+def build_sharded_retrieve(
+    mesh,
+    doc_axes: tuple[str, ...],
+    n_docs: int,
+    k: int,
+    alpha: float = hsf.DEFAULT_ALPHA,
+    beta: float = hsf.DEFAULT_BETA,
+    use_kernel: bool = False,
+):
+    """Returns retrieve(doc_vecs, doc_sigs, q_vecs, q_sigs) -> (vals, ids).
+
+    - ``mesh`` is a shard mesh (``launch.mesh.make_shard_mesh``: one
+      device per shard) and ``doc_axes`` its axis, ``("shards",)``.
+    - doc_vecs [N, D] f32, doc_sigs [N, W] int32: the padded corpus
+      (``pad_corpus``; N divisible by the shard count), split into
+      contiguous per-shard row ranges (``shard_corpus``) — or those
+      per-shard blocks already, as two tuples.
+    - q_vecs [B, D], q_sigs [B, W] on the first shard's device.
+    - returns (vals [B, k], ids [B, k]) on the first shard's device,
+      merged by (score desc, id asc).
+
+    Each shard computes its local top ``min(k, N/S)``: the full-f32 gemm
+    scores with rows past ``n_docs`` masked to -inf and a stable top-k,
+    or (``use_kernel=True``) one fused ``hsf_score_batched`` launch
+    whose ``n_valid`` — the shard's real rows, ``clip(n_docs − base, 0,
+    N/S)`` — is a host integer.  Slots the kernel cannot fill carry the
+    sentinel id 2³¹−1 and lose every merge.  Nothing reads back to the
+    host, so a call captures as a CUDA graph.
+    """
+    if tuple(doc_axes) != ("shards",):
+        raise ValueError(f"a shard mesh has the one axis ('shards',), got "
+                         f"{tuple(doc_axes)}")
+    n_shards = len(mesh)
+    out_dev = mesh[0]
+    if not use_kernel and torch.device(out_dev).type == "cuda":
+        # full f32 on the card: a TF32 product would keep ~3 digits
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def local_topk(s, dv, ds, qv, qs):
+        per_shard = dv.shape[0]
+        base = s * per_shard
+        kk = min(k, per_shard)
+        if use_kernel:
+            from repro_torch.kernels.hsf_score import ops as _ops
+
+            n_valid = min(max(n_docs - base, 0), per_shard)
+            v, li = _ops.hsf_score_batched(dv, ds, qv, qs, k=kk, alpha=alpha,
+                                           beta=beta, n_valid=n_valid)
+            gi = torch.where(li < per_shard, li + base,
+                             torch.full_like(li, _ops.ID_SENTINEL))
+            return v, gi
+        scores = hsf.hsf_scores_batched(dv, ds, qv, qs, alpha, beta)
+        gids = torch.arange(base, base + per_shard, dtype=torch.int32,
+                            device=dv.device)
+        scores = scores.masked_fill(gids[None, :] >= n_docs, float("-inf"))
+        v, i = hsf.top_k(scores, kk)
+        return v, gids[i]
+
+    def retrieve(doc_vecs, doc_sigs, q_vecs, q_sigs):
+        if isinstance(doc_vecs, torch.Tensor):
+            doc_vecs, doc_sigs = shard_corpus(doc_vecs, doc_sigs, mesh)
+        if len(doc_vecs) != n_shards:
+            raise ValueError(f"{len(doc_vecs)} doc blocks for {n_shards} "
+                             "shards")
+        vals, ids = [], []
+        for s, dev in enumerate(mesh):
+            v, gi = local_topk(s, doc_vecs[s], doc_sigs[s], q_vecs.to(dev),
+                               q_sigs.to(dev))
+            vals.append(v.to(out_dev))
+            ids.append(gi.to(out_dev))
+        return _stable_top_k(torch.cat(vals, dim=1), torch.cat(ids, dim=1),
+                             k)
+
+    return retrieve
 
 
 def single_device_reference(doc_vecs, doc_sigs, q_vecs, q_sigs, n_docs, k,

@@ -14,18 +14,29 @@ until the top-k is provably stable (see ivf.py for the bound).
   maintenance off the engine's dirty-row log, and the container state
   the persistence plane journals (the JAX package's ``ivf_*`` segments).
 
-Consumed by ``QueryEngine(index="ivf")`` (core/engine.py); frozen
-per-generation by the serving snapshots (serving/snapshot.py).  The
-sharded cluster plane (``ShardedIVFIndex``, ``partition_clusters``)
-comes with the multi-device slice of the port.
+- ``sharded.py`` — the cluster plane partitioned over a shard mesh
+  (docs/ARCHITECTURE.md §10): per-shard resident blocks on their
+  devices, a global host probe, per-shard map-path rerank, stable merge.
+
+Consumed by ``QueryEngine(index="ivf" | "ivf-sharded")``
+(core/engine.py); frozen per-generation by the serving snapshots
+(serving/snapshot.py).
 """
 from repro_torch.index.kmeans import default_n_clusters, spherical_kmeans
 from repro_torch.index.ivf import IVFIndex, IVFSearchStats, score_candidate_rows
+from repro_torch.index.sharded import (
+    ShardedIVFIndex,
+    ShardedIVFSearchStats,
+    partition_clusters,
+)
 
 __all__ = [
     "IVFIndex",
     "IVFSearchStats",
+    "ShardedIVFIndex",
+    "ShardedIVFSearchStats",
     "default_n_clusters",
+    "partition_clusters",
     "score_candidate_rows",
     "spherical_kmeans",
 ]

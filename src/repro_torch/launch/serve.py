@@ -28,14 +28,17 @@ For an MoE arch the active parameter count is printed beside the
 total.  ``--index ivf`` serves through the clustered index plane
 (k-means on the serving device at first use, or the container's
 persisted index state adopted without a retrain; ``--nprobe``,
-``--guarantee exact`` for results provably equal to the flat scan).
-``--tenant-root DIR`` serves many tenants through one runtime instead:
+``--guarantee exact`` for results provably equal to the flat scan);
+``--index ivf-sharded`` partitions the clusters over ``--shards`` shards
+(by default the CUDA device count on the card, 1 with ``--device cpu``),
+one per card when the host has that many and logical shards on one
+device otherwise, each reranking its own clusters with the bit-stable
+map path.  ``--tenant-root DIR`` serves many tenants through one runtime instead:
 a container pool rooted at ``DIR`` (``DIR/<tenant>.ragdb`` each), lazy
 mounts and LRU eviction under ``--resident-budget``, per-tenant quotas
 (``--quota-rate``, ``--quota-burst``), queries round-robined over
 ``--tenants`` tenant ids; it serves retrieval only, as the JAX driver
-does.  ``--index ivf-sharded``/``--shards`` come with a later slice of
-the port.
+does.
 """
 from __future__ import annotations
 
@@ -71,6 +74,15 @@ def _print_health(runtime) -> None:
     for reason in h["reasons"]:
         print(f"  - {reason}")
     print(json.dumps(h, indent=2, sort_keys=True, default=str))
+
+
+def _shard_kwargs(args) -> dict:
+    """``n_shards`` for the engine when the sharded plane is asked for
+    with a count (the JAX package's serve.py ignores ``--shards``
+    otherwise)."""
+    if args.index == "ivf-sharded" and args.shards:
+        return {"n_shards": args.shards}
+    return {}
 
 
 def _generation_summary(gens, max_new_tokens: int) -> str:
@@ -114,7 +126,8 @@ def main(argv=None):
                     choices=["flat", "ivf", "ivf-sharded"],
                     help="flat = full scan; ivf = clustered probe/rerank "
                     "(sublinear, exact HSF within the probed set); "
-                    "ivf-sharded is not ported yet")
+                    "ivf-sharded = the cluster plane partitioned across "
+                    "the shard mesh (--shards)")
     ap.add_argument("--nprobe", type=int, default=8,
                     help="clusters probed per query (index=ivf)")
     ap.add_argument("--guarantee", default="probe",
@@ -122,8 +135,9 @@ def main(argv=None):
                     help="exact = widen probes until top-k provably "
                     "matches the flat scan (index=ivf)")
     ap.add_argument("--shards", type=int, default=None,
-                    help="cluster shards for index=ivf-sharded (not "
-                    "ported yet)")
+                    help="cluster shards for index=ivf-sharded (default: "
+                    "the CUDA device count, 1 on the CPU; logical shards "
+                    "on one device when devices are fewer)")
     ap.add_argument("--tenant-root", default=None, metavar="DIR",
                     help="serve multi-tenant: one container pool rooted "
                     "here (<DIR>/<tenant>.ragdb per tenant), lazy mounts "
@@ -164,11 +178,6 @@ def main(argv=None):
                     "(runtime.health(): ok | degraded | critical with "
                     "reasons) after the run")
     args = ap.parse_args(argv)
-    if args.index == "ivf-sharded" or args.shards is not None:
-        raise NotImplementedError(
-            "--index ivf-sharded and --shards belong to the multi-device "
-            "slice of the PyTorch port (ROADMAP Queue 1 item 8), which is "
-            "not ported yet; use --index flat or ivf")
 
     if args.trace:
         obs_trace.enable()
@@ -199,6 +208,7 @@ def main(argv=None):
         guarantee=args.guarantee,
         slo=_slo_from_args(args),
         device=args.device,
+        **_shard_kwargs(args),
     )
     arch = get_arch(args.arch)
     device = runtime.engine.device
@@ -215,10 +225,14 @@ def main(argv=None):
 
     with runtime:
         runtime.metrics.reset()
+        shard_note = ""
+        if args.index == "ivf-sharded" and runtime.engine.ivf is not None:
+            ivf = runtime.engine.ivf
+            shard_note = f", shards: {ivf.n_shards} {ivf.placement}"
         print(f"serving generation {runtime.generation} on "
               f"{runtime.engine.device} "
               f"(index: {runtime.engine.index}, "
-              f"scoring path: {runtime.engine.scoring_path}, "
+              f"scoring path: {runtime.engine.scoring_path}{shard_note}, "
               f"flush ≤ {args.flush_deadline_ms:.1f} ms, "
               f"batch ≤ {args.max_batch})")
         t0 = time.perf_counter()
@@ -283,6 +297,7 @@ def _serve_multitenant(args) -> int:
         nprobe=args.nprobe,
         guarantee=args.guarantee,
         device=args.device,
+        **_shard_kwargs(args),
     )
     quotas = None
     if args.quota_rate:

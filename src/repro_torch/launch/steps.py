@@ -8,7 +8,7 @@ the CPU the same static-shape function runs eagerly.
 
 - ``make_lm_prefill_step(cfg, max_len)`` and ``make_lm_decode_step(cfg)``
   are the JAX package's LM serving steps (its mesh argument is gone:
-  the multi-device planes are ROADMAP Queue 1 item 8).  Prefill takes a
+  the LM's sharded forms serve training, ROADMAP Queue 1 item 10).  Prefill takes a
   right-padded prompt and the real lengths, and writes caches allocated
   beforehand, so one graph serves every prompt of a length bucket.
 - ``GenerationSteps`` holds what ``core/rag.py`` generates with: one
@@ -28,9 +28,11 @@ the CPU the same static-shape function runs eagerly.
   assembles one (architecture × shape) cell with concrete inputs made
   from a seed: ``Cell.fn`` is the captured step and ``Cell.args`` its
   static tensors, so ``cell.fn(*cell.args)`` runs it.  LM prefill and
-  decode (all five LM archs: GQA or MLA caches, dense or MoE layers)
-  and recsys serve and retrieval are ported; the other kinds raise,
-  naming the ROADMAP item that brings them.
+  decode (all five LM archs: GQA or MLA caches, dense or MoE layers),
+  recsys serve and retrieval, and the RAGdb retrieval cells
+  (``ragdb_retrieve``: ``build_sharded_retrieve`` over a shard mesh) are
+  ported; the other kinds raise, naming the ROADMAP item that brings
+  them.
 """
 from __future__ import annotations
 
@@ -71,10 +73,9 @@ _NOT_PORTED = {
     "gnn_train": "the GNN cells come with ROADMAP Queue 1 item 11",
     "gnn_train_sampled": "the GNN cells come with ROADMAP Queue 1 item 11",
     "gnn_train_batched": "the GNN cells come with ROADMAP Queue 1 item 11",
-    "ragdb_retrieve": "the sharded retrieval cell needs "
-                      "build_sharded_retrieve, a multi-device plane "
-                      "(ROADMAP Queue 1 item 8)",
 }
+# the JAX package lowers the ragdb cells on its 16 × 16 production mesh
+REFERENCE_RAGDB_SHARDS = 256
 
 
 # ==========================================================================
@@ -455,13 +456,58 @@ def build_recsys_cell(arch_id, cfg, spec: shp.ShapeSpec, device,
                 args, {"kind": spec.kind, "reduced": cuts})
 
 
+def build_ragdb_cell(arch_id, cfg, spec: shp.ShapeSpec, device,
+                     n_shards: int | None = None, use_kernel: bool = False,
+                     seed: int = 0) -> Cell:
+    """The sharded retrieval step over ``docs_per_device × n_shards``
+    docs: unit-norm doc and query vectors, full-range int32 signatures
+    and query signatures that are the AND of two docs' (so the boost
+    fires), all from ``seed`` on ``device``.  ``n_shards`` is the shard
+    mesh's size (``launch.mesh.make_shard_mesh``: by default one shard
+    per CUDA device, 1 on the CPU; more shards than devices are logical
+    shards).  The JAX package's cell scores with the gemm path;
+    ``use_kernel=True`` scores each shard with the fused HSF top-k
+    kernel instead."""
+    from repro_torch.core import retrieval as ret
+    from repro_torch.launch import mesh as meshlib
+
+    m = spec.meta
+    if n_shards is None:
+        n_shards = meshlib.default_shards(device)
+    mesh = meshlib.make_shard_mesh(n_shards, device)
+    n_docs = m["docs_per_device"] * n_shards
+    cuts = ([f"shards {REFERENCE_RAGDB_SHARDS} -> {n_shards}"]
+            if n_shards < REFERENCE_RAGDB_SHARDS else [])
+    gen = torch.Generator(device).manual_seed(seed)
+    b = m["query_batch"]
+    dv = torch.randn((n_docs, cfg.dim), generator=gen, device=device)
+    dv = dv / dv.norm(dim=1, keepdim=True)
+    ds = torch.randint(-2**31, 2**31, (n_docs, cfg.sig_words), generator=gen,
+                       device=device, dtype=torch.int64).to(torch.int32)
+    qv = torch.randn((b, cfg.dim), generator=gen, device=device)
+    qv = qv / qv.norm(dim=1, keepdim=True)
+    rows = torch.randint(0, n_docs, (b,), generator=gen, device=device)
+    qs = ds[rows] & ds[(rows + 1) % n_docs]
+    retrieve = ret.build_sharded_retrieve(
+        mesh, meshlib.all_axes(mesh), n_docs=n_docs, k=cfg.top_k,
+        alpha=cfg.alpha, beta=cfg.beta, use_kernel=use_kernel)
+    args = (dv, ds, qv, qs)
+    return Cell(arch_id, spec.shape_id, CapturedStep(retrieve, args, device),
+                args, {"kind": spec.kind, "n_docs": n_docs,
+                       "n_shards": n_shards,
+                       "placement": meshlib.placement(mesh),
+                       "use_kernel": use_kernel, "reduced": cuts})
+
+
 def build_cell(arch_id: str, shape_id: str, smoke: bool = False, device=None,
                *, batch: int | None = None, seq: int | None = None,
-               seed: int = 0) -> Cell:
+               seed: int = 0, n_shards: int | None = None,
+               use_kernel: bool = False) -> Cell:
     """The cell of ``arch_id`` (its SMOKE config with ``smoke``) at
     ``shape_id``, on ``device`` (cuda unless the CPU is asked for).
     ``batch`` and ``seq`` cut the reference's shape, and the cell's
-    ``meta["reduced"]`` lists each cut."""
+    ``meta["reduced"]`` lists each cut.  ``n_shards`` and ``use_kernel``
+    are the ragdb cells' (``build_ragdb_cell``)."""
     family = configs.ARCHS[arch_id].family
     spec = shp.shapes_for_family(family)[shape_id]
     if spec.kind in _NOT_PORTED:
@@ -470,6 +516,11 @@ def build_cell(arch_id: str, shape_id: str, smoke: bool = False, device=None,
     arch = configs.get(arch_id)
     cfg = arch.smoke_config if smoke else arch.config
     device = resolve_device(device)
+    if spec.kind == "ragdb_retrieve":
+        if batch is not None or seq is not None:
+            raise ValueError(f"shape {shape_id} has no batch or seq to cut")
+        return build_ragdb_cell(arch_id, cfg, spec, device, n_shards,
+                                use_kernel, seed)
     if spec.kind == "lm_prefill":
         return build_lm_prefill_cell(arch_id, cfg, spec, device, batch, seq,
                                      seed)

@@ -19,8 +19,9 @@ combine sums each token's k rows in slot order (no atomics: a replay
 gives the eager step's bits).
 
 The reference's multi-device forms (``sharding_ctx``, the expert-
-parallel ``apply_expert_parallel``) belong to the multi-device planes
-of the port (ROADMAP Queue 1 item 8) and raise.
+parallel ``apply_expert_parallel``) serve its token-sharded training
+mesh; they come with the port's training substrate (ROADMAP Queue 1
+item 10) and raise.
 """
 from __future__ import annotations
 
@@ -31,9 +32,9 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 
-_MULTI_DEVICE = ("the expert-parallel and sharded MoE forms belong to the "
-                 "multi-device planes of the PyTorch port (ROADMAP Queue 1 "
-                 "item 8)")
+_MULTI_DEVICE = ("the expert-parallel and sharded MoE forms serve the "
+                 "token-sharded training mesh; they come with the training "
+                 "substrate of the PyTorch port (ROADMAP Queue 1 item 10)")
 
 
 @dataclass(frozen=True)

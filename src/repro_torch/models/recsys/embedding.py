@@ -11,13 +11,22 @@
   through ``kernels/embedding_bag`` — the CUDA kernel on a CUDA table,
   the kernel's plain version on a CPU one; without, a gather and an
   ``index_add_``.
-- The row-sharded lookup (``sharding_ctx``: each device gathers the
-  rows it owns and a sum over devices assembles the result) is a
-  multi-device plane and raises until it is ported.
+- Distribution: under ``sharding_ctx(mesh)`` the rows are
+  range-sharded over the shard mesh's S shards (``launch/mesh.py``):
+  each of S contiguous row ranges gathers the rows it owns (rows it
+  does not own give exact zeros) and a sum over the shards, in shard
+  order, assembles the result — bit-identical to the unsharded lookup,
+  because exactly one shard contributes each row.  ``lookup_scores``
+  dots the rows at their shard and sums [n] scores instead of rows.
+  The ranges are views of the one table, on the table's device, so no
+  table is copied (dlrm-mlperf FULL's 96.1 GB table does not fit one
+  card either way).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -28,11 +37,49 @@ TABLE_ROW_MULTIPLE = 512  # rows padded so any mesh axis divides evenly
 _FILL_ROWS = 1 << 22      # rows drawn per call while a table is filled
 
 
-def sharding_ctx(mesh=None, row_axis: str = "model"):
-    raise NotImplementedError(
-        "the row-sharded embedding lookup is a multi-device plane of the "
-        "PyTorch port; it comes with ROADMAP Queue 1 item 8 (multi-device "
-        "planes)")
+_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def sharding_ctx(mesh, row_axis: str = "shards"):
+    """Row-shard the lookups in this thread over ``mesh`` (a shard mesh,
+    ``launch.mesh.make_shard_mesh``: S = its length) while open."""
+    from repro_torch.launch.mesh import all_axes
+
+    if row_axis not in all_axes(mesh):
+        raise ValueError(f"a shard mesh has the axes {all_axes(mesh)}, "
+                         f"not {row_axis!r}")
+    if len(mesh) < 1:
+        raise ValueError("a shard mesh has at least one shard")
+    prev = getattr(_CTX, "value", None)
+    _CTX.value = len(mesh)
+    try:
+        yield
+    finally:
+        _CTX.value = prev
+
+
+def _row_ranges(n_rows: int, n_shards: int):
+    """(lo, hi) of each shard's contiguous rows: ⌈V/S⌉ rows a shard."""
+    per = -(-n_rows // n_shards)
+    return [(min(s * per, n_rows), min((s + 1) * per, n_rows))
+            for s in range(n_shards)]
+
+
+def _sharded(table, flat, local_fn):
+    """Σ over the shards, in shard order, of ``local_fn(view, li)`` with
+    the rows a shard does not own set to exact zeros; ``view`` is the
+    shard's row range of ``table`` and ``li`` the indices into it."""
+    out = None
+    for lo, hi in _row_ranges(table.shape[0], _CTX.value):
+        li = flat.to(torch.int64) - lo
+        valid = (li >= 0) & (li < hi - lo)
+        part = local_fn(table[lo:hi], li.clamp(0, max(hi - lo - 1, 0)))
+        mask = valid.reshape(valid.shape + (1,) * (part.dim() - 1))
+        part = torch.where(mask, part, torch.zeros((), dtype=part.dtype,
+                                                   device=part.device))
+        out = part if out is None else out + part
+    return out
 
 
 def field_offsets(vocab_sizes: tuple[int, ...], device=None) -> torch.Tensor:
@@ -75,8 +122,14 @@ def init_tables(gen: torch.Generator, vocab_sizes: tuple[int, ...],
 
 
 def lookup_rows(table: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tensor:
-    """Gather rows by already-offset indices: [...] → [..., E]."""
-    rows = torch.index_select(table, 0, flat_idx.reshape(-1))
+    """Gather rows by already-offset indices: [...] → [..., E]
+    (row-sharded under ``sharding_ctx``)."""
+    flat = flat_idx.reshape(-1)
+    if getattr(_CTX, "value", None) is None:
+        rows = torch.index_select(table, 0, flat)
+    else:
+        rows = _sharded(table, flat,
+                        lambda view, li: torch.index_select(view, 0, li))
     return rows.reshape(*flat_idx.shape, *table.shape[1:])
 
 
@@ -90,8 +143,16 @@ def lookup(table: torch.Tensor, offsets: torch.Tensor,
 def lookup_scores(table: torch.Tensor, flat_idx: torch.Tensor,
                   q_vec: torch.Tensor) -> torch.Tensor:
     """out[i] = table[idx[i]] · q — candidate scoring against one query
-    (rows cast to q's dtype after the gather)."""
-    return lookup_rows(table, flat_idx).to(q_vec.dtype) @ q_vec
+    (rows cast to q's dtype after the gather).  Under ``sharding_ctx``
+    each shard scores the rows it owns and the [n] scores are summed:
+    the gathered rows never leave their shard."""
+    flat = flat_idx.reshape(-1)
+    if getattr(_CTX, "value", None) is None:
+        return torch.index_select(table, 0, flat).to(q_vec.dtype) @ q_vec
+    return _sharded(
+        table, flat,
+        lambda view, li: torch.index_select(view, 0, li).to(q_vec.dtype)
+        @ q_vec)
 
 
 def lookup_bags(table, offsets, indices, field_ids, bag_ids, n_bags,

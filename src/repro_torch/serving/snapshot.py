@@ -69,10 +69,14 @@ class EngineSnapshot:
     scoring_path: str
     kernel_operands: tuple | None  # kernel-ready doc operands
     max_batch: int
-    # index plane pin: the engine's IVFIndex is immutable after build
-    # (maintenance *rebinds* engine.ivf, same as the tensors), so the
-    # capture is one reference — readers serve the clustered index of
-    # generation g lock-free while the writer retrains/reassigns g+1
+    # index plane pin: the engine's IVFIndex / ShardedIVFIndex is
+    # immutable after build (maintenance *rebinds* engine.ivf, same as
+    # the tensors), so the capture is one reference — readers serve the
+    # clustered index of generation g lock-free while the writer
+    # retrains/reassigns g+1.  For the sharded plane that one reference
+    # pins every shard's resident block of generation g (a patch clones
+    # a block, never writes it), so a reader's merge never mixes shard
+    # blocks from two generations
     index_kind: str = "flat"
     guarantee: str = "probe"
     ivf: object | None = None

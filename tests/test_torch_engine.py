@@ -177,9 +177,9 @@ def test_container_adoption_matches_fresh_build(tmp_path):
 def test_engine_contracts():
     texts, _ = _texts(10)
     kb = _kb(KnowledgeBase, texts, 512)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        QueryEngine(kb, index="ivf-sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    sharded = QueryEngine(kb, index="ivf-sharded", device="cpu")
+    assert sharded.n_shards == 1 and sharded.scoring_path == "map"
+    with pytest.raises(ValueError, match="n_shards"):
         QueryEngine(kb, index="ivf", n_shards=2, device="cpu")
     with pytest.raises(ValueError):
         QueryEngine(kb, index="hnsw", device="cpu")

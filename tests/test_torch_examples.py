@@ -34,6 +34,8 @@ def test_quickstart():
     assert "engine on cpu, scoring path map" in out
     assert "Recall@1 vs flat scan" in out
     assert "exact top-k bit-identical to the flat scan ✓" in out
+    assert ("sharded     : 4 shards (logical), exact top-k bit-identical "
+            "to the flat scan ✓") in out
     assert "query INV-2026 → doc_00007.txt" in out
     assert "restore     : retrieval identical after round-trip ✓" in out
 

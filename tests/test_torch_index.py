@@ -346,10 +346,11 @@ def test_ivf_parameter_validation():
         QueryEngine(kb, index="ivf", nprobe=0, device="cpu")
     with pytest.raises(ValueError, match="alpha"):
         QueryEngine(kb, index="ivf", alpha=-1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        QueryEngine(kb, index="ivf-sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_sharded_retrieve(None, ("d",), 10, 3)
+    with pytest.raises(ValueError, match="map"):
+        QueryEngine(kb, index="ivf-sharded", scoring_path="kernel",
+                    device="cpu")
+    with pytest.raises(ValueError, match="shards"):
+        build_sharded_retrieve(("cpu",), ("d",), 10, 3)
     flat = QueryEngine(kb, device="cpu")
     assert flat.ivf is None and flat.index_stats()["n_clusters"] == 0
     with pytest.raises(ValueError, match="disagrees"):
@@ -540,13 +541,33 @@ def test_serve_ivf_exact_prints_the_jax_serve_ids_and_scores(tmp_path):
     assert "retrains=1" in outs[0] and "rounds=" in outs[0]
 
 
-def test_serve_rejects_the_unported_sharded_index():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        serve.main(["--device", "cpu", "--index", "ivf-sharded",
-                    "--queries", "x"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        serve.main(["--device", "cpu", "--index", "ivf", "--shards", "2",
-                    "--queries", "x"])
+def test_serve_rejects_the_unported_sharded_index(tmp_path):
+    """The sharded plane is ported: ``--index ivf-sharded`` serves the
+    ids and scores of the JAX package's serve.py, and rejects an
+    explicit scoring path other than map as that serve.py does;
+    ``--index ivf --shards 2`` ignores ``--shards``, as it does."""
+    docs, entities = make_corpus(n_docs=40, n_entities=2, seed=5)
+    corpus = str(tmp_path / "corpus")
+    write_corpus_dir(corpus, docs)
+    base = ["--corpus", corpus, "--dim", "512", "--top-k", "3",
+            "--max-new-tokens", "0", "--queries", *entities, "other query"]
+    with pytest.raises(ValueError, match="map"):
+        serve.main(base + ["--device", "cpu", "--index", "ivf-sharded",
+                           "--scoring-path", "gemm"])
+    outs = []
+    for main, extra in (
+            (serve.main, ["--device", "cpu", "--index", "ivf",
+                          "--shards", "2"]),
+            (ref_serve.main, ["--index", "ivf", "--shards", "2"]),
+            (serve.main, ["--device", "cpu", "--index", "ivf-sharded"]),
+            (ref_serve.main, ["--index", "ivf-sharded"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(base + extra) == 0
+        outs.append(buf.getvalue())
+    got = [_printed(o) for o in outs]
+    assert got[0] == got[1] and got[2] == got[3] and len(got[0]) == 3
+    assert "shards: 1 logical" in outs[2]
 
 
 def test_index_plane_imports_neither_jax_nor_the_jax_package():

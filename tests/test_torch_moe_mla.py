@@ -139,9 +139,9 @@ def test_moe_init_draws_the_reference_shapes():
 
 
 def test_moe_multi_device_forms_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         moe.sharding_ctx(None, ("data",))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         moe.apply_expert_parallel({}, None, None, None, ("data",))
 
 

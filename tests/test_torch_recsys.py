@@ -153,8 +153,44 @@ def test_steps_need_a_device_or_a_card_and_train_is_not_ported(monkeypatch):
 
 
 def test_sharding_ctx_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        with embedding.sharding_ctx(None, "model"):
+    """The row-sharded lookup is ported: under ``sharding_ctx`` over S
+    shards, ``lookup`` and ``lookup_scores`` give the unsharded bits and
+    the JAX package's values (its sharded lookup on a one-device mesh
+    too); a mesh axis the shard mesh does not have raises."""
+    from repro_torch.launch.mesh import make_shard_mesh
+
+    vocabs = (100, 200, 50)
+    table = np.array(ref_embedding.init_tables(jax.random.PRNGKey(0),
+                                               vocabs, 16)["table"])
+    idx = np.random.default_rng(0).integers(0, 50, size=(24, 3)).astype(
+        np.int32)
+    q = np.random.default_rng(1).normal(size=(16,)).astype(np.float32)
+    offs = embedding.field_offsets(vocabs)
+    t = torch.from_numpy(table)
+    flat = torch.from_numpy(idx) + offs[None, :]
+    plain = embedding.lookup(t, offs, torch.from_numpy(idx))
+    scores = embedding.lookup_scores(t, flat.reshape(-1), torch.from_numpy(q))
+    ref_offs = ref_embedding.field_offsets(vocabs)
+    want = np.asarray(ref_embedding.lookup(jnp.asarray(table), ref_offs,
+                                           jnp.asarray(idx)))
+    np.testing.assert_array_equal(plain.numpy(), want)
+    with ref_embedding.sharding_ctx(
+            jax.make_mesh((1,), ("model",),
+                          axis_types=(jax.sharding.AxisType.Auto,)), "model"):
+        ref_sharded = np.asarray(ref_embedding.lookup(
+            jnp.asarray(table), ref_offs, jnp.asarray(idx)))
+    np.testing.assert_array_equal(ref_sharded, want)
+    for n_shards in (1, 2, 4, 7):
+        with embedding.sharding_ctx(make_shard_mesh(n_shards, "cpu")):
+            got = embedding.lookup(t, offs, torch.from_numpy(idx))
+            got_scores = embedding.lookup_scores(t, flat.reshape(-1),
+                                                 torch.from_numpy(q))
+        assert torch.equal(got, plain), n_shards
+        assert torch.equal(got_scores, scores), n_shards
+    np.testing.assert_allclose(scores.numpy(), want.reshape(-1, 16) @ q,
+                               rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="axes"):
+        with embedding.sharding_ctx(make_shard_mesh(2, "cpu"), "model"):
             pass
 
 

@@ -34,6 +34,8 @@ from repro.launch import mesh as ref_mesh
 from repro.launch import steps as ref_steps
 from repro.models.recsys import deepfm as ref_deepfm
 from repro.models.recsys import dlrm as ref_dlrm
+from repro_torch import configs
+from repro_torch.configs import shapes
 from repro_torch.kernels import counters
 from repro_torch.launch import steps
 from repro_torch.models import transformer as T
@@ -340,12 +342,39 @@ def test_a_captured_step_takes_new_inputs_into_its_buffers():
     ("mace", "full_graph_sm", "item 11"),
     ("mace", "minibatch_lg", "item 11"),
     ("mace", "molecule", "item 11"),
-    ("ragdb", "pod_16m", "item 8"),
-    ("ragdb", "edge_1k", "item 8"),
 ])
 def test_unported_kinds_raise_naming_their_roadmap_item(arch, shape_id, item):
     with pytest.raises(NotImplementedError, match=item):
         steps.build_cell(arch, shape_id, smoke=True, device="cpu")
+
+
+@pytest.mark.parametrize("shape_id,n_shards", [("pod_16m", None),
+                                               ("edge_1k", 4)])
+def test_ragdb_cell_runs_on_the_cpu(shape_id, n_shards):
+    """The ragdb_retrieve cells (once the unported cases above): the
+    SMOKE cell over ``docs_per_device × n_shards`` docs, gemm and kernel
+    legs, gives the JAX package's oracle's ids on the same arrays."""
+    from repro.core.retrieval import single_device_reference as ref_oracle
+
+    for use_kernel in (False, True):
+        cell = steps.build_cell("ragdb", shape_id, smoke=True, device="cpu",
+                                n_shards=n_shards, use_kernel=use_kernel)
+        spec = shapes.shapes_for_family("ragdb")[shape_id]
+        n_docs = spec.meta["docs_per_device"] * (n_shards or 1)
+        assert cell.meta["n_docs"] == n_docs
+        assert cell.meta["reduced"] == [f"shards 256 -> {n_shards or 1}"]
+        vals, ids = cell.fn(*cell.args)
+        cfg = configs.get("ragdb").smoke_config
+        assert vals.shape == ids.shape == (spec.meta["query_batch"],
+                                           cfg.top_k)
+        rv, ri = ref_oracle(*(a.numpy() for a in cell.args), n_docs,
+                            cfg.top_k)
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(ri))
+        np.testing.assert_allclose(vals.numpy(), np.asarray(rv), rtol=1e-5,
+                                   atol=1e-6)
+    with pytest.raises(ValueError, match="no batch"):
+        steps.build_cell("ragdb", shape_id, smoke=True, device="cpu",
+                         batch=2)
 
 
 def test_cell_cuts_are_checked():
