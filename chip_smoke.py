@@ -177,6 +177,29 @@ Phases (any failure raises and the script exits non-zero):
    runs inside phase 8, while the 48 GB table is resident: the lookup
    at batch 512, the serve forward and the 1,000,448 candidate scores
    bit-equal to the unsharded ones, no table copied.
+13. The training substrate (no kernel is on its path: the flash kernel
+   is forward-only, and ``backend="auto"`` under grad raises on the card
+   without a launch): (a) llama3.2-3b FULL ``train_4k`` in the optimized
+   form (bf16 working copy, float32 master), 8 micro-batches of one
+   4,096-token sequence, 3 steps: finite losses, step 0's within 0.5 of
+   ln(vocab), the master keeping its bits at the schedule's lr 0 and
+   moving in every leaf after, the working copy equal to the master
+   after the bf16 cast; step seconds, tokens/s, 6·N·tokens TFLOP/s
+   against the bf16 peak, peak memory, the idle share of a profiled
+   2-micro-batch window, and one step with TF32 allowed; (b) the five
+   LM archs' SMOKE configs, two train steps on the card against the
+   same steps on the CPU, each from the CPU's weights, state and tokens
+   (loss, update, moments and parameters held per step), and
+   qwen3's MoE layer through ``apply_expert_parallel`` on 4 logical
+   expert shards against the dropless layer; (c) dlrm-rm2 (its 48.07 GB
+   table; 2 steps), deepfm and autoint (3 steps) FULL at ``train_batch``
+   (65,536): finite losses, the touched rows against a dense row-wise
+   update of those rows alone, the untouched rows and their g2
+   bit-unchanged, ms a step, samples/s, peak memory; (d)
+   ``launch/train.py --smoke --deterministic`` in a subprocess with
+   ``CUBLAS_WORKSPACE_CONFIG`` set: 40 steps with a checkpoint every 20,
+   a restart in the same process to step 60, every loss bit-equal to an
+   uninterrupted run, save and restore seconds.
 
 The second line from the end is a JSON ``kernels`` record; the last is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -3738,7 +3761,502 @@ def _sharded_lookup(torch, emb, dlrm, params, cfg, batch, query, cand):
 
 # ---------------------------------------------------------------------------
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 13: the training substrate
+# ---------------------------------------------------------------------------
+
+TRAIN_MICRO = 8           # micro-batches of one sequence a step (ref.: 256)
+TRAIN_SEQ = 4_096         # train_4k's sequence, not cut
+TRAIN_STEPS = 3           # gated steps, then one profiled, one with TF32
+PROFILE_MICRO = 2         # micro-batches in the profiled window
+LOSS_NEAR_LN_V = 0.5      # step 0's loss within this of ln(vocab)
+# (b) the card's steps against the CPU's from the same weights, state and
+# tokens (f32 SMOKE configs, TF32 off), from the end of the warm-up (lr
+# 3e-4), each step from the CPU's state: Adam's normalised step moves an
+# element whose gradient is rounding noise by up to its learning rate in
+# either direction, and the next step's gradients carry that far beyond
+# rounding, so two steps in a row on each side are not comparable leaf by
+# leaf.  Per step: the loss within rtol 1e-5; the update, leaf by leaf,
+# within SMOKE_UPDATE_REL of its norm (a dropped, halved or sign-flipped
+# update is off by half its norm or more); the moments, which carry the
+# gradients, within SMOKE_MOMENT_TOL of each leaf's largest magnitude (f32
+# sums in other orders, atomics in the embedding's backward); the
+# parameters within 2 × the step's learning rate + 1e-7 elementwise
+SMOKE_TRAIN_SHAPE = (2, 2, 64)  # micro-batches, sequences each, seq
+SMOKE_TRAIN_STEPS = 2
+SMOKE_UPDATE_REL = 1e-2
+SMOKE_MOMENT_TOL = 1e-4
+EP_SHARDS = 4
+RECSYS_TRAIN_STEPS = {"dlrm-rm2": 2, "deepfm": 3, "autoint": 3}
+# (c) the table against a row-wise update from a gradient recomputed on
+# the card by the unchanged forward: deepfm's and autoint's dense table
+# gradient and a whole-table update (DENSE_REFERENCE); dlrm-rm2's 48 GB
+# table leaves no room for a dense gradient beside it, so its reference
+# takes the touched rows' gradient through a gathered table (the step's
+# own method, so a fault in the gather or the offsets would be shared).
+# Rows with no gradient must keep their bits.  The embedding's backward
+# adds with atomics, so the two gradients agree to ~1e-5 of the largest
+# row's scale, not to the bit.  A row moves by lr·g/√g2, normalised by
+# its own gradient, so each row is held to lr · ROW_GRAD_REL · max√g2 /
+# (√g2 + ε) + 1e-6 (a row whose gradient is rounding noise may move by
+# up to a step; one with a real gradient may not), g2 within
+# ROW_GRAD_REL of its largest
+DENSE_REFERENCE = ("deepfm", "autoint")
+ROW_GRAD_REL = 1e-5
+UNTOUCHED_SAMPLE = 1 << 20  # untouched rows compared bit for bit
+RESTART = dict(steps=60, first=40, every=20)
+
+
+def _word_sum(torch, t, chunk: int = 1 << 28) -> int:
+    """Σ of ``t``'s 32-bit words (int64): a digest that moves when any
+    word does (save for changes that cancel).  Summed ``chunk`` words at
+    a time: the int64 sum takes a widened copy of what it sums."""
+    words = t.contiguous().view(torch.int32).reshape(-1)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for lo in range(0, words.numel(), chunk):
+        total += words[lo:lo + chunk].sum(dtype=torch.int64)
+    return int(total)
+
+
+def _lm_train_full(torch, np, steps, T, tree_lib):
+    """(a) llama3.2-3b FULL, the optimized form, 8 micro-batches of one
+    4,096-token sequence a step."""
+    from repro_torch.configs import get as get_arch
+
+    arch = "llama3.2-3b"
+    cfg = get_arch(arch).config
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = steps.build_cell(arch, "train_4k", device="cuda",
+                            batch=TRAIN_MICRO, seq=TRAIN_SEQ)
+    model, opt, toks, tgts = cell.args
+    torch.cuda.synchronize()
+    n_params = cfg.param_count()
+    _log(f"  (a) {arch} FULL train_4k cell in {time.perf_counter() - t0:.1f} "
+         f"s: {n_params / 1e9:.3f} B params (d_model {cfg.d_model}, "
+         f"{cfg.n_layers} layers, vocab {cfg.vocab}), bf16 working copy + "
+         f"f32 master + m + v; {cell.meta['n_micro']} micro-batches of "
+         f"{cell.meta['micro']} x {toks.shape[2]} tokens; reduced: "
+         f"{cell.meta['reduced']}; {torch.cuda.memory_allocated() / 1e9:.2f}"
+         " GB allocated")
+    params = T.param_tree(model)
+    master = opt["master"]
+    tokens = toks.numel()
+
+    def run_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, new_opt, loss = cell.fn(*cell.args)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        return new_opt, loss, time.perf_counter() - t
+
+    step_s = []
+    for i in range(TRAIN_STEPS):
+        before = [_word_sum(torch, t) for t in tree_lib.leaves(master)]
+        m_before = _word_sum(torch, tree_lib.leaves(opt["m"])[0])
+        lr = float(steps.warmup_cosine(opt["step"], 3e-4, steps.WARMUP_STEPS,
+                                       steps.TOTAL_STEPS))
+        opt, loss, dt = run_step()
+        after = [_word_sum(torch, t) for t in tree_lib.leaves(master)]
+        changed = sum(a != b for a, b in zip(before, after))
+        assert math.isfinite(loss), f"step {i}: loss {loss}"
+        if i == 0:
+            near = abs(loss - math.log(cfg.vocab))
+            assert near <= LOSS_NEAR_LN_V, (
+                f"step 0 loss {loss:.4f}, ln(vocab) "
+                f"{math.log(cfg.vocab):.4f}")
+        if lr == 0.0:
+            # the reference's schedule starts at lr 0: the master keeps
+            # its bits, the moments take the gradients
+            assert changed == 0, f"step {i} at lr 0 moved {changed} leaves"
+            assert _word_sum(torch, tree_lib.leaves(opt["m"])[0]) != m_before
+        else:
+            assert changed == len(before), (
+                f"step {i}: {len(before) - changed} master leaves unchanged")
+        for p, mp in zip(tree_lib.leaves(params), tree_lib.leaves(master)):
+            assert torch.equal(p.detach(), mp.to(torch.bfloat16)), \
+                "working copy != master after the bf16 cast"
+        step_s.append(dt)
+        _log(f"    step {i}: loss {loss:.4f} (ln V {math.log(cfg.vocab):.4f}), "
+             f"lr {lr:.3e}, {dt:.2f} s, master leaves changed "
+             f"{changed}/{len(before)}, working copy = bf16(master)")
+    steady = statistics.median(step_s[1:])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tflops = 6 * n_params * tokens / steady / 1e12
+    _log(f"    step {steady:.3f} s (median of steps 1-{TRAIN_STEPS - 1}; "
+         f"step 0 {step_s[0]:.3f} s), {tokens / steady:,.0f} tokens/s, "
+         f"6·N·tokens {tflops:.1f} TFLOP/s = {tflops / 989:.1%} of the 989 "
+         f"TFLOP/s dense bf16 peak; peak {peak:.2f} GB allocated")
+    # the profiled window: a step over PROFILE_MICRO of the micro-batches
+    # (the same loop body and update; a whole step's trace is ~4x larger)
+    part = steps.make_lm_train_step(cfg, PROFILE_MICRO, bf16_params=True)
+
+    def window():
+        part(model, opt, toks[:PROFILE_MICRO], tgts[:PROFILE_MICRO])
+
+    window()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t) * 1e3
+    idle = _profile(torch, window, window_ms,
+                    f"a train step of {PROFILE_MICRO} micro-batches",
+                    mark="gemm", mark_name="GEMM kernels")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, _, tf32_s = run_step()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    _log(f"    with TF32 allowed (the script keeps it off): {tf32_s:.3f} s a "
+         f"step ({steady / tf32_s:.2f}x); peak "
+         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del cell, model, opt, params, master
+    return {"step_s": steady, "tokens_per_s": tokens / steady,
+            "tflops": tflops, "peak_gb": peak, "idle": idle,
+            "tf32_step_s": tf32_s}
+
+
+def _auto_refuses_grad(torch, fa_ops):
+    """``backend="auto"`` on the card under grad raises instead of
+    running the forward-only kernel, and launches nothing."""
+    from repro_torch.models import attention as attn
+
+    q, k, v = (torch.randn((1, 4, 64, 64), device="cuda",
+                           dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    fa_ops.reset_counts()
+    try:
+        attn.attention(q, k, v, scale=0.125, backend="auto")
+    except RuntimeError as exc:
+        assert "no backward" in str(exc), exc
+    else:
+        raise AssertionError("flash kernel ran under grad")
+    assert fa_ops.counts == {"launches": 0, "plain": 0}, fa_ops.counts
+    with torch.no_grad():
+        attn.attention(q, k, v, scale=0.125, backend="auto")
+    assert fa_ops.counts["launches"] == 1
+    fa_ops.reset_counts()
+    _log("  backend='auto' under grad on the card raises (no launch, no "
+         "plain fallback); under no_grad it launches the kernel")
+
+
+def _smoke_states(torch, T, steps, cfg, device, seed=0):
+    """The same f32 training weights (from a CPU generator) on ``device``,
+    with fresh AdamW state at the end of the warm-up (lr 3e-4)."""
+    from repro_torch.optim import adamw_init
+
+    gen = torch.Generator().manual_seed(seed)
+    cpu = T.init(cfg, gen, "cpu", leaf_dtype=torch.float32)
+    model = T.LM(cfg, T.param_tree(cpu), device, leaf_dtype=torch.float32,
+                 requires_grad=True)
+    opt = adamw_init(T.param_tree(model))
+    opt["step"] = torch.tensor(steps.WARMUP_STEPS, dtype=torch.int32,
+                               device=device)
+    return model, opt
+
+
+def _lm_train_smoke(torch, np, steps, T, tree_lib):
+    """(b) each LM arch's SMOKE config: train steps on the card against
+    the same steps on the CPU, each step from the CPU's state, its loss,
+    update, moments and parameters held leaf by leaf; qwen3's MoE layer
+    through ``apply_expert_parallel`` on 4 logical expert shards."""
+    from repro_torch.configs import ARCHS, get as get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import moe
+
+    def leaves(state, k=None):
+        model, opt = state
+        return tree_lib.leaves(T.param_tree(model) if k is None else opt[k])
+
+    n_micro, micro, seq = SMOKE_TRAIN_SHAPE
+    for arch in [a for a, s in ARCHS.items() if s.family == "lm"]:
+        cfg = get_arch(arch).smoke_config
+        toks, tgts = pipeline.lm_batch(pipeline.DataCursor(seed=0),
+                                       n_micro * micro, seq, cfg.vocab)
+        toks, tgts = (torch.from_numpy(a.reshape(n_micro, micro, seq))
+                      for a in (toks, tgts))
+        t0 = time.perf_counter()
+        states = {where: _smoke_states(torch, T, steps, cfg, where)
+                  for where in ("cpu", "cuda")}
+        step = steps.make_lm_train_step(cfg, n_micro)
+        losses = {"cpu": [], "cuda": []}
+        worst = dict.fromkeys(("update", "m", "v", "params"), 0.0)
+        for i in range(SMOKE_TRAIN_STEPS):
+            with torch.no_grad():
+                for k in (None, "m", "v"):
+                    for dst, src in zip(leaves(states["cuda"], k),
+                                        leaves(states["cpu"], k)):
+                        dst.copy_(src)
+            states["cuda"][1]["step"] = states["cpu"][1]["step"].cuda()
+            lr = float(steps.warmup_cosine(states["cpu"][1]["step"], 3e-4,
+                                           steps.WARMUP_STEPS,
+                                           steps.TOTAL_STEPS))
+            old = [p.detach().clone() for p in leaves(states["cpu"])]
+            for where, (model, opt) in states.items():
+                _, _, loss = step(model, opt, toks.to(where), tgts.to(where))
+                losses[where].append(float(loss))
+            a, b = losses["cpu"][-1], losses["cuda"][-1]
+            assert abs(a - b) <= 1e-5 * abs(a), (arch, i, a, b)
+            for o, a, b in zip(old, leaves(states["cpu"]),
+                               leaves(states["cuda"])):
+                a, b = a.detach(), b.detach().cpu()
+                size = float((a - o).norm())
+                assert size > 0, f"{arch} step {i}: a leaf did not move"
+                err = float((b - a).norm()) / size
+                worst["update"] = max(worst["update"], err)
+                assert err <= SMOKE_UPDATE_REL, (arch, i, err)
+                assert torch.allclose(b, a, rtol=1e-4, atol=2 * lr + 1e-7), \
+                    (arch, i)
+                worst["params"] = max(worst["params"],
+                                      float((a - b).abs().max()))
+            for k in ("m", "v"):
+                for a, b in zip(leaves(states["cpu"], k),
+                                leaves(states["cuda"], k)):
+                    scale = float(a.abs().max()) + 1e-30
+                    err = float((a - b.cpu()).abs().max()) / scale
+                    worst[k] = max(worst[k], err)
+                    assert err <= SMOKE_MOMENT_TOL, (arch, i, k, err)
+        _log(f"  (b) {arch} SMOKE: {SMOKE_TRAIN_STEPS} steps of {n_micro} x "
+             f"{micro} x {seq} tokens from step {steps.WARMUP_STEPS} (lr "
+             f"3e-4), each from the CPU's state, card vs CPU: losses "
+             f"{losses['cuda']} vs {losses['cpu']}; updates within "
+             f"{worst['update']:.2e} of their norm (bound "
+             f"{SMOKE_UPDATE_REL:.0e}); moments within {worst['m']:.1e} / "
+             f"{worst['v']:.1e} of their largest (bound "
+             f"{SMOKE_MOMENT_TOL:.0e}), params within {worst['params']:.1e} "
+             f"(atol 2 lr + 1e-7); {time.perf_counter() - t0:.1f} s")
+        if cfg.moe is not None and arch == "qwen3-moe-30b-a3b":
+            layer = T.param_tree(states["cuda"][0])["layers"][0]["mlp"]
+            x = torch.randn((n_micro * micro * seq, cfg.d_model),
+                            device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(3))
+            with torch.no_grad():
+                want, aux = moe.apply(layer, x, cfg.moe)
+                got, got_aux = moe.apply_expert_parallel(
+                    layer, x, cfg.moe,
+                    meshlib.make_host_mesh(EP_SHARDS, "cuda"), ("data",),
+                    capacity_factor=16.0)
+            err = float((got - want).abs().max())
+            assert err <= 1e-5 * float(want.abs().max()) + 1e-6, err
+            assert abs(float(got_aux) - float(aux)) <= 1e-6
+            _log(f"      apply_expert_parallel on {EP_SHARDS} logical expert "
+                 f"shards (capacity factor 16, T = {x.shape[0]}) vs dropless: "
+                 f"max |diff| {err:.2e}, aux equal")
+
+
+def _table_reference(torch, mod, cfg, params, inputs, rows, offs, flat,
+                     dense: bool):
+    """(loss, {table key: (index, gradient)}) at the step's weights, from
+    the unchanged forward: over the whole table (``dense``; the index
+    takes every row), or, for a table too large for a dense gradient
+    beside it, over a gathered table of the touched rows ``rows`` with
+    the field offsets folded into the indices (the step's own method)."""
+    from repro_torch.models.recsys import base as rbase
+    from repro_torch.optim import rowwise
+    from repro_torch.optim import tree as tree_lib
+
+    tabs, towers = rowwise.split_tree(params)
+    live = tree_lib.map_(lambda t: t.detach().clone().requires_grad_(),
+                         towers)
+    if dense:
+        sub = {k: t.detach().clone().requires_grad_()
+               for k, t in tabs.items()}
+        idx = inputs["sparse_idx"]
+        index = slice(None)
+    else:
+        sub = {k: t[rows].requires_grad_() for k, t in tabs.items()}
+        inverse = torch.searchsorted(rows, flat.reshape(-1).to(torch.int64))
+        idx = (inverse.view(flat.shape) - offs[None, :]).to(torch.int32)
+        index = rows
+    loss = rbase.bce_with_logits(
+        mod.forward({**live, **sub}, inputs.get("dense"), idx, cfg),
+        inputs["labels"])
+    loss.backward()
+    return loss.item(), {k: (index, t.grad) for k, t in sub.items()}
+
+
+def _recsys_train(torch, np, steps, arch, tree_lib):
+    """(c) one recsys arch FULL at train_batch (65,536): its steps with
+    the untouched rows' bits and the touched rows against a dense
+    row-wise update."""
+    from repro_torch.models.recsys import embedding as emb
+    from repro_torch.optim import rowwise
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = steps.build_cell(arch, "train_batch", device="cuda")
+    params, opt, inputs = cell.args
+    cfg = steps.configs.get(arch).config
+    torch.cuda.synchronize()
+    b = inputs["sparse_idx"].shape[0]
+    table = params["table"]
+    dense_ref = arch in DENSE_REFERENCE
+    _log(f"  (c) {arch} FULL train_batch ({b:,}): table {tuple(table.shape)}"
+         f" ({table.numel() * 4 / 1e9:.2f} GB) + g2 in "
+         f"{time.perf_counter() - t0:.1f} s; reference: "
+         + ("the dense table gradient and a whole-table row-wise update"
+            if dense_ref else "the touched rows' gradient (no room for a "
+            "dense one beside the table) and their row-wise update"))
+    mod = steps.RECSYS_MODULES[arch]
+    row_cfg = rowwise.RowwiseAdagradConfig()
+    offs = emb.cached_offsets(cfg.vocab_sizes, table.device)
+    flat = (inputs["sparse_idx"].to(torch.int32) + offs[None, :])
+    rows = torch.unique(flat.reshape(-1)).to(torch.int64)
+    times = []
+    gen = torch.Generator("cuda").manual_seed(7)
+    for i in range(RECSYS_TRAIN_STEPS[arch]):
+        tabs, _ = rowwise.split_tree(params)
+        before = {k: (_word_sum(torch, t), _word_sum(torch, t[rows]),
+                      opt["g2"][k].clone()) for k, t in tabs.items()}
+        untouched = torch.ones(table.shape[0], dtype=torch.bool,
+                               device="cuda")
+        untouched[rows] = False
+        sample = torch.randint(0, table.shape[0], (2 * UNTOUCHED_SAMPLE,),
+                               device="cuda", generator=gen)
+        sample = sample[untouched[sample]][:UNTOUCHED_SAMPLE]
+        sample_before = {k: t[sample].clone() for k, t in tabs.items()}
+        loss_chk, grads = _table_reference(torch, mod, cfg, params, inputs,
+                                           rows, offs, flat, dense_ref)
+        want = {}
+        for k, (index, g) in grads.items():
+            t0_ = tabs[k][index]
+            new_t, new = rowwise.rowwise_update(
+                g if g.dim() == 2 else g[:, None],
+                {"g2": before[k][2][index]},
+                t0_ if t0_.dim() == 2 else t0_[:, None], row_cfg)
+            want[k] = (index, new_t, new["g2"], (g == 0).reshape(
+                g.shape[0], -1).all(dim=1))
+        del grads
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, new_opt, loss = cell.fn(*cell.args)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        opt = new_opt
+        assert math.isfinite(loss) and abs(loss - loss_chk) <= 1e-5, (
+            loss, loss_chk)
+        worst = 0.0
+        for k, t_ in rowwise.split_tree(params)[0].items():
+            full0, rsum0, g2_0 = before[k]
+            index, want_t, want_g2, zero = want[k]
+            got = t_[index] if t_.dim() == 2 else t_[index][:, None]
+            # rows with no gradient: the dense update leaves them as they
+            # were, bit for bit; rows with one: within the bound
+            assert torch.equal(got[zero], want_t[zero]), (arch, k)
+            assert torch.equal(opt["g2"][k][index][zero], want_g2[zero])
+            diff = (got - want_t).abs().amax(dim=1)[~zero]
+            root = want_g2[~zero].sqrt()
+            allowed = (row_cfg.lr * ROW_GRAD_REL * root.max()
+                       / (root + row_cfg.eps) + 1e-6)
+            worst = max(worst, float((diff / allowed).max()))
+            assert bool((diff <= allowed).all()), (arch, k)
+            g2_err = (opt["g2"][k][index] - want_g2).abs().max()
+            assert float(g2_err) <= ROW_GRAD_REL * float(want_g2.max()), (
+                arch, k)
+            # untouched rows: the table's word sum less the touched rows'
+            # is unchanged, a sample of them is bit-equal, g2 bit-equal
+            assert (_word_sum(torch, t_) - _word_sum(torch, t_[rows])
+                    == full0 - rsum0), f"{arch} {k}: untouched rows moved"
+            assert torch.equal(t_[sample], sample_before[k])
+            assert torch.equal(opt["g2"][k][untouched], g2_0[untouched])
+        del want
+        _log(f"    step {i}: loss {loss:.5f}, {rows.numel():,} touched rows "
+             f"(against the {'whole-table' if dense_ref else 'touched-row'} "
+             f"row-wise update: rows without a gradient bit-equal, worst "
+             f"row at {worst:.2f} of its bound), untouched rows and g2 "
+             f"bit-unchanged ({UNTOUCHED_SAMPLE:,} rows compared, word sums "
+             f"equal), {times[-1] * 1e3:.2f} ms")
+    steady = statistics.median(times[1:]) if len(times) > 1 else times[0]
+    _log(f"    {arch}: {steady * 1e3:.2f} ms a step (median after the first, "
+         f"{times[0] * 1e3:.2f} ms), {b / steady:,.0f} samples/s, peak "
+         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del cell, params, opt, inputs, table
+    return {"step_ms": steady * 1e3, "samples_per_s": b / steady,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def restart_replay(ckpt_dir: str) -> int:
+    """(d)'s body, run in its own process (``chip_smoke.py
+    --restart-replay DIR``) with ``CUBLAS_WORKSPACE_CONFIG`` set, so that
+    deterministic algorithms are allowed: ``launch/train.py --smoke
+    --deterministic`` for 40 steps with a checkpoint every 20, then a
+    restart in this process to step 60, against an uninterrupted 60-step
+    run; prints one JSON line."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import train
+
+    common = ["--smoke", "--device", "cuda", "--deterministic",
+              "--ckpt-every", str(RESTART["every"])]
+    straight = train.run(train.parse_args(
+        common + ["--steps", str(RESTART["steps"])]))
+    ck = ["--ckpt-dir", ckpt_dir]
+    first = train.run(train.parse_args(
+        common + ck + ["--steps", str(RESTART["first"])]))
+    second = train.run(train.parse_args(
+        common + ck + ["--steps", str(RESTART["steps"])]))
+    replayed = {**first["losses"], **second["losses"]}
+    print(json.dumps({
+        "start": second["start"],
+        "equal": [s for s in range(RESTART["steps"])
+                  if replayed[s] == straight["losses"][s]],
+        "losses": [straight["losses"][s] for s in (0, 20, 40, 59)],
+        "save_s": first["save_s"], "restore_s": second["restore_s"]}))
+    return 0
+
+
+def _restart_replay_on_the_card(tmp):
+    import os
+
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--restart-replay",
+         str(Path(tmp) / "train_ckpt")],
+        capture_output=True, text=True, env=env, timeout=600)
+    if out.returncode != 0:
+        _log(out.stdout[-4000:])
+        _log(out.stderr[-4000:])
+        raise AssertionError(f"restart-replay exited {out.returncode}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["start"] == RESTART["first"], res
+    assert res["equal"] == list(range(RESTART["steps"])), res["equal"]
+    _log(f"  (d) launch/train.py --smoke --deterministic on the card: "
+         f"{RESTART['first']} steps (checkpoint every {RESTART['every']}), "
+         f"restart at {res['start']} to {RESTART['steps']} in the same "
+         f"process: all {RESTART['steps']} losses bit-equal to an "
+         f"uninterrupted run (losses at 0/20/40/59: {res['losses']}); save "
+         f"calls {[round(s, 4) for s in res['save_s']]} s (async), restore "
+         f"{res['restore_s']:.4f} s; {time.perf_counter() - t0:.1f} s with "
+         "the process start")
+
+
+def phase_training(torch, np, fa_ops, tmp):
+    """Phase 13: the training substrate on the card."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import tree as tree_lib
+
+    _auto_refuses_grad(torch, fa_ops)
+    full = _lm_train_full(torch, np, steps, T, tree_lib)
+    torch.cuda.empty_cache()
+    _lm_train_smoke(torch, np, steps, T, tree_lib)
+    recsys = {arch: _recsys_train(torch, np, steps, arch, tree_lib)
+              for arch in RECSYS_TRAIN_STEPS}
+    torch.cuda.empty_cache()
+    _restart_replay_on_the_card(tmp)
+    return full, recsys
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--restart-replay"]:
+        return restart_replay(argv[1])
     import torch
 
     if not torch.cuda.is_available():
@@ -3778,7 +4296,6 @@ def main() -> int:
     _log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
          f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
          "device(s)")
-
     with _phase("phase 1: build"):
         t0 = time.perf_counter()
         reports = build.build_all()
@@ -3859,6 +4376,11 @@ def main() -> int:
             shard_launches, shard_err, shard_timing = phase_sharded_retrieve(
                 torch, np, ops, ref, steps)
             phase_sharded_engine(torch, np, tmp)
+
+        with _phase("phase 13: the training substrate (llama3.2-3b FULL "
+                    "train_4k, five LM SMOKE configs card vs CPU, recsys "
+                    "train_batch FULL, launch/train.py restart-replay)"):
+            phase_training(torch, np, fa_ops, tmp)
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     _log(f"card: {card}")  # again, near the end, for readers of the tail
 

@@ -6,7 +6,8 @@ five LM archs (``llama3.2-3b``, ``gemma2-9b``, ``gemma3-27b``, the MoE
 four recsys archs (``dlrm-rm2``, ``dlrm-mlperf``, ``deepfm``,
 ``autoint``) and the retrieval config ``ragdb``; ``get`` raises
 ``NotImplementedError`` for ``mace``, naming the ROADMAP item that
-brings it.
+brings it.  ``cells()`` lists every (arch, shape) cell, as the JAX
+package's does.
 """
 from __future__ import annotations
 
@@ -65,3 +66,11 @@ def get(arch_id: str) -> ArchSpec:
             f"arch {arch_id!r} is not ported to PyTorch yet; it comes "
             f"with {spec.roadmap}")
     return spec
+
+
+def cells() -> list[tuple[str, str]]:
+    """All (arch_id, shape_id) cells, in the JAX package's order."""
+    from repro_torch.configs import shapes as shp
+
+    return [(arch_id, shape_id) for arch_id, spec in ARCHS.items()
+            for shape_id in shp.shapes_for_family(spec.family)]

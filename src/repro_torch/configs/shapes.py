@@ -1,10 +1,13 @@
 """Per-family input-shape sets (the JAX package's ``configs/shapes.py``):
-``ShapeSpec`` and the shape tables as plain dicts.  The JAX package's
-``input_specs`` (abstract stand-ins for its dry-run lowering) has no
-counterpart here."""
+``ShapeSpec``, the shape tables as plain dicts, and ``input_specs``:
+the data inputs of each cell's step as tensors on the ``meta`` device
+(shape and dtype, no storage) — torch's counterpart of the reference's
+``jax.ShapeDtypeStruct`` stand-ins."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -88,3 +91,58 @@ RAGDB_SHAPES = {
 def shapes_for_family(family: str) -> dict[str, ShapeSpec]:
     return {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES,
             "ragdb": RAGDB_SHAPES}[family]
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(arch, spec: ShapeSpec) -> dict:
+    """The data inputs of ``spec``'s step for the arch config ``arch``,
+    as meta tensors (parameters and caches are not data inputs)."""
+    m = spec.meta
+    i32, f32 = torch.int32, torch.float32
+    if spec.kind == "lm_train":
+        return {"tokens": _spec((m["batch"], m["seq"]), i32),
+                "targets": _spec((m["batch"], m["seq"]), i32)}
+    if spec.kind == "lm_prefill":
+        return {"tokens": _spec((m["batch"], m["seq"]), i32)}
+    if spec.kind == "lm_decode":
+        return {"tokens": _spec((m["batch"], 1), i32),
+                "lengths": _spec((m["batch"],), i32)}
+    if spec.kind in ("gnn_train", "gnn_train_sampled", "gnn_train_batched"):
+        nn, ne = m["pad_nodes"], m["pad_edges"]
+        specs = {
+            "node_feats": _spec((nn, m["d_feat"]), f32),
+            "positions": _spec((nn, 3), f32),
+            "senders": _spec((ne,), i32),
+            "receivers": _spec((ne,), i32),
+            "labels": _spec((nn,), i32),
+            "edge_mask": _spec((ne,), f32),
+            "node_mask": _spec((nn,), f32),
+        }
+        if spec.kind == "gnn_train_sampled":
+            specs["seed_mask"] = _spec((nn,), f32)
+        if spec.kind == "gnn_train_batched":
+            specs["graph_ids"] = _spec((nn,), i32)
+            specs["energy_targets"] = _spec((m["n_graphs"],), f32)
+        return specs
+    if spec.kind in ("recsys_train", "recsys_serve"):
+        specs = {"sparse_idx": _spec((m["batch"], arch.n_sparse), i32)}
+        if arch.n_dense:
+            specs["dense"] = _spec((m["batch"], arch.n_dense), f32)
+        if spec.kind == "recsys_train":
+            specs["labels"] = _spec((m["batch"],), f32)
+        return specs
+    if spec.kind == "recsys_retrieval":
+        specs = {"candidate_ids": _spec((m["pad_candidates"],), i32)}
+        specs["query"] = (_spec((m["batch"], arch.n_dense), f32)
+                          if arch.n_dense
+                          else _spec((m["batch"], arch.n_sparse), i32))
+        return specs
+    if spec.kind == "ragdb_retrieve":
+        # per-device doc shard sizes are multiplied by the shard count
+        # when the cell is built (launch/steps.py)
+        return {"query_vecs": _spec((m["query_batch"], arch.dim), f32),
+                "query_sigs": _spec((m["query_batch"], arch.sig_words), i32)}
+    raise ValueError(spec.kind)

@@ -178,12 +178,14 @@ def _score_topk(doc_vecs, doc_sigs, q_vecs, q_sigs, n_valid,
 
 def _selected_cos_ind(doc_vecs, doc_sigs, q_vecs, q_sigs, idx):
     """Per-result cosine + exact containment for the selected docs only
-    — O(B·k·D) instead of the O(B·N·D) full recompute.  Sentinel ids of
-    unfillable slots are clamped for the gather; their scores are -inf
-    and results never read them."""
+    — O(B·k·D) instead of the O(B·N·D) full recompute.  The cosine is
+    ``stable_rowdot``'s pinned-order sum, so a query's cosines do not
+    depend on the batch it came in.  Sentinel ids of unfillable slots
+    are clamped for the gather; their scores are -inf and results never
+    read them."""
     sel = idx.clamp(max=doc_vecs.shape[0] - 1).long()
     sel_vecs = doc_vecs[sel].to(torch.float32)                  # [B,k,D]
-    cos = torch.einsum("bkd,bd->bk", sel_vecs, q_vecs.to(torch.float32))
+    cos = hsf.pairwise_sum(sel_vecs * q_vecs.to(torch.float32)[:, None, :])
     sel_sigs = doc_sigs[sel]                                    # [B,k,W]
     qs = q_sigs[:, None, :]
     ind = torch.all((sel_sigs & qs) == qs, dim=-1).to(torch.float32)

@@ -21,6 +21,7 @@ import torch
 
 DEFAULT_ALPHA = 1.0
 DEFAULT_BETA = 1.0
+ROWDOT_CHUNK_BYTES = 1 << 30
 
 
 def stable_rowdot(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
@@ -35,15 +36,36 @@ def stable_rowdot(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     row's dot is a pure function of that row's values — independent of
     how many rows ride along or which device scores them.
     """
-    p = mat.to(torch.float32) * vec.to(torch.float32)[None, :]
+    return pairwise_sum(mat.to(torch.float32) * vec.to(torch.float32)[None, :])
+
+
+def batched_rowdot(mat: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """``stable_rowdot(mat, v)`` for every row v of ``vecs``: float32
+    [B, n].  The same elementwise products and add tree, broadcast over
+    the queries, so each (query, row) dot is the same bits as one query
+    at a time (an elementwise op rounds each element alone).  The
+    [B, n, D] products are formed ROWDOT_CHUNK_BYTES of them at a time
+    (at least one query's)."""
+    mat = mat.to(torch.float32)
+    vecs = vecs.to(torch.float32)
+    step = max(1, ROWDOT_CHUNK_BYTES // max(1, 4 * mat.numel()))
+    if vecs.shape[0] <= step:
+        return pairwise_sum(mat[None] * vecs[:, None])
+    return torch.cat([pairwise_sum(mat[None] * v[:, None])
+                      for v in vecs.split(step)])
+
+
+def pairwise_sum(p: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis by ``stable_rowdot``'s pinned order: the
+    axis zero-padded to a power of two, then halved by pairwise adds."""
     d = p.shape[-1]
     width = 1 << max(0, d - 1).bit_length() if d > 1 else 1
     if width != d:
         p = torch.nn.functional.pad(p, (0, width - d))
     while width > 1:
         width //= 2
-        p = p[:, :width] + p[:, width:]
-    return p[:, 0]
+        p = p[..., :width] + p[..., width:]
+    return p[..., 0]
 
 
 def containment(doc_sigs: torch.Tensor,

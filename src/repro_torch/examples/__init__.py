@@ -4,6 +4,7 @@
     python -m repro_torch.examples.live_sync [--device cpu]
     python -m repro_torch.examples.multi_tenant [--device cpu]
     python -m repro_torch.examples.rag_serve [--device cpu]
+    python -m repro_torch.examples.train_lm [--device cpu]
 
 Each runs on the card unless ``--device cpu`` is given, and asserts what
 it shows.

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hsf
+from repro_torch.core.hsf import batched_rowdot
 from repro_torch.core.engine import _bucket
 from repro_torch.index.ivf import (
     IVFIndex,
@@ -112,23 +113,6 @@ def partition_clusters(sizes, n_shards: int) -> np.ndarray:
 # --------------------------------------------------------------------------
 # per-shard local scorer (the map formulation, over a resident block)
 # --------------------------------------------------------------------------
-
-def batched_rowdot(mat: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
-    """``hsf.stable_rowdot(mat, v)`` for every row v of ``vecs`` at once:
-    float32 [B, n].  The same elementwise products and the same
-    pairwise-halving add tree over the feature axis, broadcast over the
-    queries, so each (query, row) dot is the same bits as one query at a
-    time (an elementwise op rounds each element alone)."""
-    p = mat.to(torch.float32)[None, :, :] * vecs.to(torch.float32)[:, None, :]
-    d = p.shape[-1]
-    width = 1 << max(0, d - 1).bit_length() if d > 1 else 1
-    if width != d:
-        p = torch.nn.functional.pad(p, (0, width - d))
-    while width > 1:
-        width //= 2
-        p = p[..., :width] + p[..., width:]
-    return p[..., 0]
-
 
 def _containment_rows(sigs: torch.Tensor, q_sigs: torch.Tensor):
     """``hsf.containment(sigs, q)`` for every row q of ``q_sigs``:

@@ -13,6 +13,14 @@ launches the kernel (or raises — wrong dtype, device, shape or head
 size, a failed build, a launch error); a CPU tensor takes the plain
 version in ``ref.py``, counted apart as ``plain``.
 
+The kernel is forward-only (as the reference's, which has no
+``custom_vjp``): where autograd would need its backward — a CUDA
+operand that requires grad while grad is enabled — the wrapper raises
+(``refuse_grad``) instead of returning a result with no gradient, and
+never falls back to the plain version.  Training runs the attention's
+``"blockwise"`` backend.  On the CPU the plain version, which has a
+gradient, runs as before.
+
 Operands are passed by their (batch, head, row) strides, so transposed
 projections are read in place.  An operand whose innermost stride is
 not 1, or whose rows are not 16-byte aligned, is copied to a contiguous
@@ -47,6 +55,17 @@ def reset_counts() -> None:
 
 def _bump(key: str) -> None:
     counters.bump("flash_attention", key)
+
+
+def refuse_grad(device_type: str, requires_grad, grad_enabled: bool) -> None:
+    """Raise where the kernel's missing backward would be needed: on
+    ``cuda``, with grad enabled and any operand (``requires_grad``, one
+    flag per operand) requiring grad."""
+    if device_type == "cuda" and grad_enabled and any(requires_grad):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward, and an "
+            "operand requires grad; train with the blockwise attention "
+            "(backend='blockwise') or call under torch.no_grad()")
 
 
 @functools.cache
@@ -168,6 +187,8 @@ def flash_attention(
         scale = q.shape[-1] ** -0.5
     lk = k.shape[2]
     kv_len = lk if kv_len is None else int(kv_len)
+    refuse_grad(q.device.type, (q.requires_grad, k.requires_grad,
+                                 v.requires_grad), torch.is_grad_enabled())
     if q.device.type == "cuda":
         if q.shape[0] == 0 or q.shape[1] == 0 or q.shape[2] == 0:
             _check_operands(q, k, v)

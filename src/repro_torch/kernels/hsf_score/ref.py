@@ -4,11 +4,14 @@
 hsf_score.cu``): one f32 matvec plus the containment test.
 ``hsf_score_topk_ref`` is the fused top-k kernel's (``csrc/
 hsf_topk.cu``): full [B, N] scores, then a stable sort — the expensive
-way the kernel avoids.  ``hsf_score_3xtf32`` emulates the kernel's
-arithmetic for the products: the 3xTF32 split that puts them on the
-tensor cores.  Both mirror the JAX package's ``ref.py``.  CPU
-tensors use them, and so do the tests; the wrappers never take them for
-a CUDA tensor when the shape fits the kernel.
+way the kernel avoids.  Like the kernel (one fixed K order), it gives a
+query the same bits at any batch size: each query's scores come from
+its own pinned-order reduction (``hsf_score_rows``), not from one
+[B, D] × [D, N] gemm, whose bits depend on B.  ``hsf_score_3xtf32``
+emulates the kernel's arithmetic for the products: the 3xTF32 split
+that puts them on the tensor cores.  Both mirror the JAX package's
+``ref.py``.  CPU tensors use them, and so do the tests; the wrappers
+never take them for a CUDA tensor when the shape fits the kernel.
 """
 from __future__ import annotations
 
@@ -47,13 +50,27 @@ def hsf_score_matrix(doc_vecs, doc_sigs, query_vecs, query_sigs,
     return alpha * cos + beta * containment_matrix(doc_sigs, query_sigs)
 
 
+def hsf_score_rows(doc_vecs, doc_sigs, query_vecs, query_sigs,
+                   alpha: float, beta: float) -> torch.Tensor:
+    """α·cos + β·containment — float32 [B, N], each cosine by the
+    pinned-order ``stable_rowdot`` (elementwise products, then a
+    pairwise add tree; ``batched_rowdot``): a query's row is a function
+    of that query alone, the same bits at any B."""
+    from repro_torch.core.hsf import batched_rowdot
+
+    cos = batched_rowdot(doc_vecs, query_vecs)
+    return alpha * cos + beta * containment_matrix(doc_sigs, query_sigs)
+
+
 def hsf_score_topk_ref(doc_vecs, doc_sigs, query_vecs, query_sigs,
                        alpha: float, beta: float, k: int, n_valid=None):
     """(vals [B, k] f32, ids [B, k] int32) ordered (score desc, id asc);
     rows ``>= n_valid`` score -inf.  Ids of -inf slots are whatever the
-    sort leaves there — the wrapper maps them to the sentinel."""
-    scores = hsf_score_matrix(doc_vecs, doc_sigs, query_vecs, query_sigs,
-                              alpha, beta)
+    sort leaves there — the wrapper maps them to the sentinel.  A
+    query's results do not depend on the other queries of the batch
+    (``hsf_score_rows``)."""
+    scores = hsf_score_rows(doc_vecs, doc_sigs, query_vecs, query_sigs,
+                            alpha, beta)
     if n_valid is not None:
         ids = torch.arange(scores.shape[1], device=scores.device)
         scores = scores.masked_fill(ids[None, :] >= n_valid, float("-inf"))

@@ -1,19 +1,27 @@
-"""Shard placement for the retrieval planes (the JAX package's
-``launch/mesh.py``, its ``make_shard_mesh`` and ``all_axes``).
+"""Meshes of the port (the JAX package's ``launch/mesh.py``).
 
-The JAX package is single-controller: one process drives a 1-D
-``("shards",)`` device mesh through ``shard_map``, or loops over
-logical shards on the default device when the host has fewer devices
-than shards.  The port keeps one process and no ``torch.distributed``:
-a shard mesh is a tuple of one ``torch.device`` per shard.  A shard's
-block, its local top-k and its launches live on its device; results
-come back to the first device (or to the host) for the merge.
+The JAX package is single-controller: one process drives a device mesh
+through ``shard_map``.  The port keeps one process and no
+``torch.distributed``.
 
-The production, host and data-parallel meshes of the JAX package serve
-training and its dry run; they come with the training substrate of the
-port (ROADMAP Queue 1 item 10).
+- A shard mesh (``make_shard_mesh``, the retrieval planes) is a tuple of
+  one ``torch.device`` per shard: a shard's block, its local top-k and
+  its launches live on its device; results come back to the first
+  device (or to the host) for the merge.
+- A host mesh (``make_host_mesh``, training) is a ``HostMesh``: the
+  ``("data", "model")`` axes over the cards that exist, or, where the
+  host has fewer cards than the model axis asks for, one data replica
+  whose model axis is that many logical shards of one device (the MoE
+  expert-parallel form runs its expert shards one after another there,
+  with the same per-shard arithmetic).  ``dp_axes``/``dp_size`` read it
+  as the reference's do.
+
+``make_production_mesh`` (the reference's 256-chip pod mesh) serves its
+dry run, which comes with ``launch/dryrun.py``; it raises.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -49,5 +57,64 @@ def default_shards(device) -> int:
 
 def all_axes(mesh) -> tuple[str, ...]:
     """The mesh's axis names: a shard mesh has the one ``"shards"``."""
-    del mesh
+    if isinstance(mesh, HostMesh):
+        return mesh.axis_names
     return SHARD_AXES
+
+
+# ==========================================================================
+# training meshes
+# ==========================================================================
+
+@dataclass(frozen=True)
+class HostMesh:
+    """``shape`` maps each axis name to its size; ``devices`` holds one
+    device per mesh position, data-major (a logical mesh repeats one
+    device)."""
+    shape: dict
+    devices: tuple
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return tuple(self.shape)
+
+    @property
+    def placement(self) -> str:
+        return placement(self.devices)
+
+
+def make_host_mesh(model_parallel: int = 1, device=None) -> HostMesh:
+    """The ("data", "model") mesh over the CUDA devices (``device`` on
+    the CPU, or when given): data = cards // model_parallel when the
+    cards divide evenly, else one data replica with ``model_parallel``
+    logical model shards of ``device``."""
+    if model_parallel < 1:
+        raise ValueError(f"model_parallel must be >= 1, got {model_parallel}")
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n >= model_parallel and n % model_parallel == 0 and n > 1:
+        devices = tuple(torch.device("cuda", i) for i in range(n))
+        return HostMesh({"data": n // model_parallel,
+                         "model": model_parallel}, devices)
+    return HostMesh({"data": 1, "model": model_parallel},
+                    (device,) * model_parallel)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    raise NotImplementedError(
+        "the production mesh (16 x 16 chips a pod) serves the dry run: "
+        "ROADMAP Queue 1 item 15, after launch/dryrun.py (item 14)")
+
+
+def dp_axes(mesh: HostMesh) -> tuple[str, ...]:
+    """Data-parallel axes: pod (if present) + data."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def dp_size(mesh: HostMesh) -> int:
+    out = 1
+    for a in dp_axes(mesh):
+        out *= mesh.shape[a]
+    return out

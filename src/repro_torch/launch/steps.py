@@ -1,16 +1,23 @@
-"""Step builders (the JAX package's ``launch/steps.py``, serving half).
+"""Step builders (the JAX package's ``launch/steps.py``).
 
-The JAX package compiles each serving step into one program
-(``jax.jit``).  Here the counterpart is a CUDA graph: ``CapturedStep``
-captures a step once over static input buffers and then replays it, so
-the host issues one launch per step instead of every operator's.  On
-the CPU the same static-shape function runs eagerly.
+The JAX package compiles each step into one program (``jax.jit``).
+Here the counterpart of a serving step is a CUDA graph:
+``CapturedStep`` captures a step once over static input buffers and then
+replays it, so the host issues one launch per step instead of every
+operator's.  On the CPU the same static-shape function runs eagerly.
+The train steps run eagerly on both (capturing them is ROADMAP Queue 1
+item 16).
 
 - ``make_lm_prefill_step(cfg, max_len)`` and ``make_lm_decode_step(cfg)``
-  are the JAX package's LM serving steps (its mesh argument is gone:
-  the LM's sharded forms serve training, ROADMAP Queue 1 item 10).  Prefill takes a
+  are the JAX package's LM serving steps (its mesh argument is gone: a
+  serving step runs on one card).  Prefill takes a
   right-padded prompt and the real lengths, and writes caches allocated
   beforehand, so one graph serves every prompt of a length bucket.
+- ``make_lm_train_step(cfg, n_micro, ...)``: gradient accumulation over
+  micro-batches (a Python loop where the reference scans), float32
+  accumulators, the ``warmup_cosine`` learning rate, then AdamW; with
+  ``bf16_params=True`` the model holds the bf16 working copy and
+  ``opt_state["master"]`` the float32 master.
 - ``GenerationSteps`` holds what ``core/rag.py`` generates with: one
   static cache, one prefill step per power-of-two prompt bucket and one
   decode step, each captured at first use.
@@ -20,19 +27,22 @@ the CPU the same static-shape function runs eagerly.
   candidate scores, positions ``>= batch["n_real_candidates"]`` masked
   to -inf first, ordered (score desc, id asc) by the port's top-k
   kernel (``jax.lax.top_k``'s order; ``torch.topk`` has no tie rule on
-  CUDA); ``recsys_train`` raises (ROADMAP Queue 1 item 10).  A batch
-  holds numpy arrays or tensors (``dense``, ``sparse_idx``; ``query``,
-  ``candidate_ids``, ``n_real_candidates``); the step moves them to its
-  device.  The params must already be there.
+  CUDA); ``recsys_train`` → the train step: BCE, the dense towers on
+  AdamW, the tables on row-wise Adagrad over the rows the batch touches.
+  A batch holds numpy arrays or tensors (``dense``, ``sparse_idx``,
+  ``labels``; ``query``, ``candidate_ids``, ``n_real_candidates``); the
+  step moves them to its device.  The params must already be there.
 - ``build_cell(arch_id, shape_id, smoke=False, device=None, ...)``
   assembles one (architecture × shape) cell with concrete inputs made
-  from a seed: ``Cell.fn`` is the captured step and ``Cell.args`` its
-  static tensors, so ``cell.fn(*cell.args)`` runs it.  LM prefill and
-  decode (all five LM archs: GQA or MLA caches, dense or MoE layers),
-  recsys serve and retrieval, and the RAGdb retrieval cells
-  (``ragdb_retrieve``: ``build_sharded_retrieve`` over a shard mesh) are
-  ported; the other kinds raise, naming the ROADMAP item that brings
-  them.
+  from a seed: ``cell.fn(*cell.args)`` runs it.  A serving cell's
+  ``fn`` is the captured step and its ``args`` the static tensors; a
+  train cell's ``fn`` is the eager train step and its ``args`` the
+  model (or params), the optimizer state and the batch, updated in
+  place by every call.  LM train, prefill and decode (all five LM
+  archs: GQA or MLA caches, dense or MoE layers), recsys train, serve
+  and retrieval, and the RAGdb retrieval cells (``ragdb_retrieve``:
+  ``build_sharded_retrieve`` over a shard mesh) are ported; the GNN
+  kinds raise, naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -45,12 +55,19 @@ import torch
 from repro_torch import configs
 from repro_torch.configs import shapes as shp
 from repro_torch.core.engine import resolve_device
+from repro_torch.data import pipeline
 from repro_torch.kernels import counters
 from repro_torch.kernels.topk import ops as topk_ops
 from repro_torch.models import transformer as T
 from repro_torch.models.recsys import autoint as autoint_mod
+from repro_torch.models.recsys import base as rec_base
 from repro_torch.models.recsys import deepfm as deepfm_mod
 from repro_torch.models.recsys import dlrm as dlrm_mod
+from repro_torch.models.recsys import embedding as emb_mod
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim import tree as tree_lib
+from repro_torch.optim import warmup_cosine
+from repro_torch.optim import rowwise
 
 RECSYS_MODULES = {
     "dlrm-rm2": dlrm_mod, "dlrm-mlperf": dlrm_mod,
@@ -65,11 +82,10 @@ RETRIEVAL_TOP_K = 16
 WARMUP_RUNS = 2
 SMALLEST_BUCKET = 64
 
+# the reference's schedule inside its train steps
+WARMUP_STEPS, TOTAL_STEPS = 100, 10000
+
 _NOT_PORTED = {
-    "lm_train": "training needs the optimizers and the training substrate "
-                "of the PyTorch port (ROADMAP Queue 1 item 10)",
-    "recsys_train": "recsys_train needs the optimizers (optim/rowwise.py, "
-                    "AdamW) of the PyTorch port (ROADMAP Queue 1 item 10)",
     "gnn_train": "the GNN cells come with ROADMAP Queue 1 item 11",
     "gnn_train_sampled": "the GNN cells come with ROADMAP Queue 1 item 11",
     "gnn_train_batched": "the GNN cells come with ROADMAP Queue 1 item 11",
@@ -229,6 +245,84 @@ def make_lm_decode_step(cfg: T.LMConfig, backend: str = "auto"):
     return step_fn
 
 
+class _GradAccumulator:
+    """Adds each leaf's gradient into a float32 accumulator as soon as
+    backward has produced it, then frees it (a post-accumulate-grad
+    hook): a micro-batch's gradients never exist beside the
+    accumulators as a whole."""
+
+    def __init__(self, leaves):
+        self.acc = [torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device) for p in leaves]
+        self._handles = []
+        for p, a in zip(leaves, self.acc):
+            p.grad = None
+            self._handles.append(
+                p.register_post_accumulate_grad_hook(self._hook(a)))
+
+    @staticmethod
+    def _hook(acc):
+        def fn(p):
+            acc.add_(p.grad.to(torch.float32))
+            p.grad = None
+        return fn
+
+    def close(self):
+        for h in self._handles:
+            h.remove()
+
+
+def make_lm_train_step(cfg: T.LMConfig, n_micro: int,
+                       adamw: AdamWConfig | None = None,
+                       backend: str = "blockwise",
+                       bf16_params: bool = False):
+    """``step(model, opt_state, tokens, targets)`` → (model, opt_state,
+    loss): tokens/targets [n_micro, micro_batch, seq].  Each micro-batch's
+    ``lm_loss`` is backpropagated and its gradients summed into float32
+    accumulators, which are then divided by ``n_micro``; the loss is the
+    mean of the micro losses.  ``bf16_params=True``: the model holds the
+    bf16 working copy (``T.init(..., leaf_dtype=torch.bfloat16,
+    requires_grad=True)``) and ``opt_state["master"]`` the float32
+    master in ``T.param_tree``'s layout; AdamW updates the master, which
+    is cast back into the working copy.  Otherwise AdamW updates the
+    model's own leaves.  Model and state (the dict itself: its ``step``
+    is replaced) are updated in place, so a cell's ``fn(*args)`` can be
+    called again.
+    ``backend`` is the attention's: the blockwise path (the reference's
+    ``"xla"``), since the flash kernel has no backward."""
+    adamw = adamw or AdamWConfig()
+
+    def step_fn(model, opt_state, tokens, targets):
+        params = T.param_tree(model)
+        acc = _GradAccumulator(tree_lib.leaves(params))
+        losses = []
+        try:
+            for i in range(n_micro):
+                loss = T.lm_loss(model, tokens[i], targets[i], cfg, backend)
+                loss.backward()
+                losses.append(loss.detach())
+        finally:
+            acc.close()
+        grads = tree_lib.from_leaves(params,
+                                     [a.div_(n_micro) for a in acc.acc])
+        lr = warmup_cosine(opt_state["step"], adamw.lr, WARMUP_STEPS,
+                           TOTAL_STEPS)
+        if bf16_params:
+            inner = {k: opt_state[k] for k in ("m", "v", "step")}
+            master, new_inner = adamw_update(grads, inner,
+                                             opt_state["master"], adamw, lr)
+            with torch.no_grad():
+                tree_lib.map_(lambda p, mp: p.copy_(mp.to(p.dtype)), params,
+                              master)
+            opt_state.update(new_inner)
+        else:
+            opt_state.update(adamw_update(grads, opt_state, params, adamw,
+                                          lr)[1])
+        return model, opt_state, torch.stack(losses).mean()
+
+    return step_fn
+
+
 def prompt_bucket(n: int, max_context: int) -> int:
     """The padded length a prompt of ``n`` tokens is prefilled at: the
     smallest power of two from 64 that holds it, at most
@@ -306,7 +400,65 @@ def _on(x, device):
     return x.to(device, non_blocking=True)
 
 
-def make_recsys_step(arch_id: str, cfg, kind: str, device=None):
+def recsys_opt_init(params: dict) -> dict:
+    """The recsys train state: AdamW's over the dense towers and one
+    float32 ``g2`` per table row (``g2[key]`` [rows])."""
+    tables, dense = rowwise.split_tree(params)
+    return {**adamw_init(dense),
+            "g2": {k: rowwise.rowwise_init(v)["g2"] for k, v in tables.items()}}
+
+
+def _recsys_train_step(mod, cfg, device, adamw: AdamWConfig,
+                       row_cfg: rowwise.RowwiseAdagradConfig):
+    def step_fn(params, opt_state, batch):
+        sparse = _on(batch["sparse_idx"], device)
+        labels = _on(batch["labels"], device)
+        tables, dense = rowwise.split_tree(params)
+        # the rows this batch touches, once each; the forward runs
+        # unchanged on a table of just those rows: the field offsets
+        # the model adds are folded into the indices, so that index +
+        # offset is the row's place in the small table
+        offs = emb_mod.cached_offsets(cfg.vocab_sizes, device)
+        flat = sparse.to(torch.int32) + offs[None, :]
+        rows, inverse = torch.unique(flat.reshape(-1), return_inverse=True)
+        rows = rows.to(torch.int64)
+        local = (inverse.view(flat.shape) - offs[None, :]).to(torch.int32)
+        touched = {k: v[rows].requires_grad_() for k, v in tables.items()}
+        live = tree_lib.map_(lambda p: p.detach().requires_grad_(), dense)
+        logits = mod.forward({**live, **touched},
+                             _on(batch.get("dense"), device), local, cfg)
+        loss = rec_base.bce_with_logits(logits, labels)
+        loss.backward()
+        lr = warmup_cosine(opt_state["step"], adamw.lr, WARMUP_STEPS,
+                           TOTAL_STEPS)
+        # the dense towers: AdamW (its global-norm clip over them only)
+        inner = {k: opt_state[k] for k in ("m", "v", "step")}
+        _, new_inner = adamw_update(tree_lib.map_(lambda p: p.grad, live),
+                                    inner, dense, adamw, lr)
+        # the tables: row-wise Adagrad on the touched rows; the others
+        # keep their bits, as the dense update leaves them
+        for k, t in tables.items():
+            g = touched[k].grad
+            rowwise.rowwise_update_rows(
+                rows, g if g.dim() == 2 else g[:, None],
+                {"g2": opt_state["g2"][k]},
+                t if t.dim() == 2 else t[:, None], row_cfg)
+        opt_state.update(new_inner)
+        return params, opt_state, loss.detach()
+
+    return step_fn
+
+
+def make_recsys_step(arch_id: str, cfg, kind: str, device=None,
+                     adamw: AdamWConfig | None = None):
+    """The step of one recsys shape kind (module docstring).  The train
+    step, ``step(params, opt_state, batch)`` → (params, opt_state, loss),
+    updates params and state (``recsys_opt_init``) in place: the dense
+    towers on AdamW (``adamw``, default lr 3e-4 without weight decay)
+    under the reference's warm-up/cosine schedule, the tables on
+    row-wise Adagrad (lr 0.02) over the rows the batch touches — what
+    the reference's dense update gives, without a table-sized
+    gradient."""
     mod = RECSYS_MODULES[cfg.name if cfg.name in RECSYS_MODULES else arch_id]
     device = resolve_device(device)
     # full f32 in the towers on the card: a TF32 product keeps ~3 digits
@@ -335,7 +487,9 @@ def make_recsys_step(arch_id: str, cfg, kind: str, device=None):
         return retrieve
 
     if kind == "recsys_train":
-        raise NotImplementedError(_NOT_PORTED["recsys_train"])
+        return _recsys_train_step(mod, cfg, device,
+                                  adamw or AdamWConfig(weight_decay=0.0),
+                                  rowwise.RowwiseAdagradConfig())
     raise ValueError(f"unknown recsys step kind {kind!r}")
 
 
@@ -346,11 +500,12 @@ def make_recsys_step(arch_id: str, cfg, kind: str, device=None):
 @dataclass(frozen=True)
 class Cell:
     """One (architecture × shape) step with its concrete inputs:
-    ``fn(*args)`` runs it (a ``CapturedStep`` over ``args``).
-    ``meta["reduced"]`` lists each cut from the reference's shape."""
+    ``fn(*args)`` runs it (a ``CapturedStep`` over ``args``, or a train
+    step).  ``meta["reduced"]`` lists each cut from the reference's
+    shape."""
     arch_id: str
     shape_id: str
-    fn: CapturedStep
+    fn: object
     args: tuple
     meta: dict
 
@@ -366,6 +521,32 @@ def _sizes(spec: shp.ShapeSpec, batch: int | None, seq: int | None):
                                                        ("seq", s))
             if name in m and v != m[name]]
     return b, s, cuts
+
+
+def build_lm_train_cell(arch_id, cfg: T.LMConfig, spec: shp.ShapeSpec,
+                        device, batch=None, seq=None, seed=0) -> Cell:
+    """The reference's optimized train cell: a bf16 working copy and a
+    float32 master, micro-batches of one sequence (its
+    one-sequence-per-device micro-batch on one device), so ``n_micro`` =
+    batch.  Weights from ``seed`` (``T.init``), tokens from the data
+    pipeline (``lm_batch`` at ``DataCursor(seed)``).  ``args`` = (model,
+    opt_state, tokens, targets)."""
+    b, s, cuts = _sizes(spec, batch, seq)
+    micro = 1
+    n_micro = b // micro
+    gen = torch.Generator(device).manual_seed(seed)
+    master = T.param_tree(T.init(cfg, gen, device, leaf_dtype=torch.float32))
+    model = T.LM(cfg, master, device, leaf_dtype=torch.bfloat16,
+                 requires_grad=True)
+    opt = {**adamw_init(master), "master": master}
+    toks, tgts = pipeline.lm_batch(pipeline.DataCursor(seed=seed), b, s,
+                                   cfg.vocab)
+    tokens, targets = (torch.from_numpy(a.reshape(n_micro, micro, s))
+                       .to(device) for a in (toks, tgts))
+    step = make_lm_train_step(cfg, n_micro, bf16_params=True)
+    return Cell(arch_id, spec.shape_id, step, (model, opt, tokens, targets),
+                {"kind": "lm_train", "n_micro": n_micro, "micro": micro,
+                 "reduced": cuts})
 
 
 def build_lm_prefill_cell(arch_id, cfg: T.LMConfig, spec: shp.ShapeSpec,
@@ -424,13 +605,25 @@ def build_recsys_cell(arch_id, cfg, spec: shp.ShapeSpec, device,
     """Weights (the arch's ``init``) and a batch from ``seed``.  The
     retrieval cell scores ``pad_candidates`` ids of field 0, of which the
     first ``n_candidates`` (1,000,000) are real: the step's mask is a
-    constant of the graph, as the JAX package's cell fixes it."""
-    if spec.kind not in ("recsys_serve", "recsys_retrieval"):
-        raise NotImplementedError(_NOT_PORTED[spec.kind])
+    constant of the graph, as the JAX package's cell fixes it.  The train
+    cell's batch comes from the data pipeline (``recsys_batch`` at
+    ``DataCursor(seed)``: labels that depend on field 0), its ``fn`` is
+    the eager train step and its ``args`` (params, opt_state, batch)."""
     m = spec.meta
     gen = torch.Generator(device).manual_seed(seed)
     params = RECSYS_MODULES[arch_id].init(cfg, gen, device)
     step = make_recsys_step(arch_id, cfg, spec.kind, device)
+    if spec.kind == "recsys_train":
+        b, _, cuts = _sizes(spec, batch, None)
+        dense, sparse, labels = pipeline.recsys_batch(
+            pipeline.DataCursor(seed=seed), b, cfg.vocab_sizes, cfg.n_dense)
+        inputs = {"sparse_idx": torch.from_numpy(sparse).to(device),
+                  "labels": torch.from_numpy(labels).to(device)}
+        if dense is not None:
+            inputs["dense"] = torch.from_numpy(dense).to(device)
+        return Cell(arch_id, spec.shape_id, step,
+                    (params, recsys_opt_init(params), inputs),
+                    {"kind": spec.kind, "reduced": cuts})
     if spec.kind == "recsys_retrieval":
         if batch is not None:
             raise ValueError("the retrieval cell has no batch to cut")
@@ -521,6 +714,9 @@ def build_cell(arch_id: str, shape_id: str, smoke: bool = False, device=None,
             raise ValueError(f"shape {shape_id} has no batch or seq to cut")
         return build_ragdb_cell(arch_id, cfg, spec, device, n_shards,
                                 use_kernel, seed)
+    if spec.kind == "lm_train":
+        return build_lm_train_cell(arch_id, cfg, spec, device, batch, seq,
+                                   seed)
     if spec.kind == "lm_prefill":
         return build_lm_prefill_cell(arch_id, cfg, spec, device, batch, seq,
                                      seed)

@@ -86,13 +86,15 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp_apply(params, x: torch.Tensor, activation: str = "silu"):
-    """``params`` maps w_gate/w_up/w_down to matrices in x's dtype.
-    "gelu" is the tanh approximation, as ``jax.nn.gelu`` defaults to."""
-    gate = x @ params["w_gate"]
-    up = x @ params["w_up"]
+    """``params`` maps w_gate/w_up/w_down to matrices, cast to x's dtype
+    at use (a no-op for weights already in it).  "gelu" is the tanh
+    approximation, as ``jax.nn.gelu`` defaults to."""
+    dt = x.dtype
+    gate = x @ params["w_gate"].to(dt)
+    up = x @ params["w_up"].to(dt)
     act = (F.gelu(gate, approximate="tanh") if activation == "gelu"
            else F.silu(gate))
-    return (act * up) @ params["w_down"]
+    return (act * up) @ params["w_down"].to(dt)
 
 
 # --------------------------------------------------------------------------

@@ -72,7 +72,8 @@ def init(gen: torch.Generator, cfg: MLAConfig, d_model: int, n_heads: int,
 def _project_q(params, x, cfg: MLAConfig, n_heads: int, positions,
                rope_base):
     b, l, _ = x.shape
-    q = (x @ params["w_q"]).view(b, l, n_heads, cfg.qk_head_dim)
+    q = (x @ params["w_q"].to(x.dtype)).view(b, l, n_heads,
+                                             cfg.qk_head_dim)
     q = q.transpose(1, 2)  # [B, H, L, qdim]
     q_nope = q[..., :cfg.nope_head_dim]
     q_rope = layers.apply_rope(q[..., cfg.nope_head_dim:], positions,
@@ -82,9 +83,9 @@ def _project_q(params, x, cfg: MLAConfig, n_heads: int, positions,
 
 def compress_kv(params, x, cfg: MLAConfig, positions, rope_base):
     """x → (c_kv [B, L, R] normalized, k_rope [B, 1, L, rope_dim])."""
-    c_kv = layers.rms_norm(x @ params["w_dkv"],
+    c_kv = layers.rms_norm(x @ params["w_dkv"].to(x.dtype),
                            params["kv_norm"].to(torch.float32) + 1.0)
-    k_rope = (x @ params["w_kr"])[:, None]  # one shared head
+    k_rope = (x @ params["w_kr"].to(x.dtype))[:, None]  # one shared head
     return c_kv, layers.apply_rope(k_rope, positions, rope_base)
 
 
@@ -113,16 +114,17 @@ def apply(params, x, cfg: MLAConfig, n_heads: int, positions,
     h = n_heads
     q_nope, q_rope = _project_q(params, x, cfg, h, positions, rope_base)
     c_kv, k_rope = compress_kv(params, x, cfg, positions, rope_base)
-    k_nope = (c_kv @ params["w_uk"]).view(b, l, h, cfg.nope_head_dim) \
-        .transpose(1, 2)
-    v = (c_kv @ params["w_uv"]).view(b, l, h, cfg.v_head_dim).transpose(1, 2)
+    k_nope = (c_kv @ params["w_uk"].to(x.dtype)) \
+        .view(b, l, h, cfg.nope_head_dim).transpose(1, 2)
+    v = (c_kv @ params["w_uv"].to(x.dtype)) \
+        .view(b, l, h, cfg.v_head_dim).transpose(1, 2)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(b, h, l, cfg.rope_head_dim)],
                   dim=-1)
     o = padded_attention(q, k, v, scale=cfg.scale,
                          head_dim=padded_head_dim(cfg), backend=backend)
     o = o.transpose(1, 2).reshape(b, l, h * cfg.v_head_dim)
-    return o @ params["w_o"], (c_kv, k_rope)
+    return o @ params["w_o"].to(x.dtype), (c_kv, k_rope)
 
 
 def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -175,4 +177,4 @@ def decode_absorbed(params, x, cfg: MLAConfig, n_heads: int,
     w_uv = params["w_uv"].view(r, h, cfg.v_head_dim)
     o = torch.einsum("bhqr,rhd->bhqd", attn_c.to(x.dtype), w_uv)
     o = o.transpose(1, 2).reshape(b, 1, h * cfg.v_head_dim)
-    return o @ params["w_o"], (c_kv_cache, k_rope_cache)
+    return o @ params["w_o"].to(x.dtype), (c_kv_cache, k_rope_cache)

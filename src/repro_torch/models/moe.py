@@ -18,23 +18,29 @@ sizes its output from the data), empty groups are empty ranges, and the
 combine sums each token's k rows in slot order (no atomics: a replay
 gives the eager step's bits).
 
-The reference's multi-device forms (``sharding_ctx``, the expert-
-parallel ``apply_expert_parallel``) serve its token-sharded training
-mesh; they come with the port's training substrate (ROADMAP Queue 1
-item 10) and raise.
+The reference's multi-device forms serve its token-sharded training
+mesh (``launch/mesh.make_host_mesh``).  The port's host mesh places no
+token shard on a card of its own (one data replica on one card), so
+``sharding_ctx`` keeps the reference's name and changes nothing: the
+dropless dispatch of each token's (token, slot) pairs is the same
+whether the tokens are sorted per shard or all at once.
+``apply_expert_parallel`` is the capacity-bounded expert-parallel form:
+each expert shard of the model axis owns E/n_ep experts and gathers at
+most ``capacity`` of the (token, slot) pairs routed to them (GShard
+semantics: overflow drops), and the shards' outputs are summed in shard
+order (the reference's psum).  On one card the shards are logical: they
+run one after another on the card.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
-
-_MULTI_DEVICE = ("the expert-parallel and sharded MoE forms serve the "
-                 "token-sharded training mesh; they come with the training "
-                 "substrate of the PyTorch port (ROADMAP Queue 1 item 10)")
 
 
 @dataclass(frozen=True)
@@ -48,12 +54,13 @@ class MoEConfig:
     aux_loss_weight: float = 0.001
 
 
-def sharding_ctx(*args, **kwargs):
-    raise NotImplementedError(_MULTI_DEVICE)
-
-
-def apply_expert_parallel(*args, **kwargs):
-    raise NotImplementedError(_MULTI_DEVICE)
+@contextlib.contextmanager
+def sharding_ctx(mesh, token_axes: tuple[str, ...]):
+    """The reference's token-sharded dispatch context.  The port places
+    no token shard on a card of its own, and dispatching the shards one
+    by one on one card gives what ``apply`` gives, so the context
+    changes nothing."""
+    yield
 
 
 def init(gen: torch.Generator, cfg: MoEConfig, d_model: int,
@@ -135,6 +142,69 @@ def aux_loss(probs, expert_ids, cfg: MoEConfig) -> torch.Tensor:
     hits = (expert_ids[..., None] == experts).to(torch.float32).sum(dim=1)
     ce = hits.mean(dim=0) / k
     return cfg.aux_loss_weight * e * (me * ce).sum()
+
+
+def _ep_compute(x, expert_ids, gates, w_gate, w_up, w_down, shard: int,
+                capacity: int):
+    """One expert shard's part of the output, [T, D] (the
+    reference's ``_ep_compute`` before its psum).  The shard owns the
+    experts [shard · E_loc, (shard + 1) · E_loc) of the local slices
+    w_gate/w_up [E_loc, D, F], w_down [E_loc, F, D].  Its (token, slot)
+    pairs are stably sorted first, grouped by local expert, and the
+    first ``capacity`` rows are taken: pairs past capacity drop, and so
+    do the other shards' pairs the capacity still reaches — those run
+    through the last local expert with a zero gate, so they add exact
+    zeros (and no gradient) instead of leaving rows of the grouped
+    products unwritten."""
+    t, d = x.shape
+    k = expert_ids.shape[1]
+    e_loc = w_gate.shape[0]
+    local = expert_ids.reshape(-1) - shard * e_loc
+    mine = (local >= 0) & (local < e_loc)
+    order = torch.sort(torch.where(mine, local, e_loc + 1), stable=True)[1]
+    sel = order[:capacity]
+    valid = mine[sel]
+    sel_e = local[sel].clamp(0, e_loc - 1)
+    sel_gate = gates.reshape(-1)[sel] * valid.to(gates.dtype)
+    sel_token = sel // k
+    # group ends over the selected rows; the last group runs to the end
+    ends = group_ends(torch.where(valid, sel_e, e_loc - 1), e_loc)
+    ys = expert_products(x[sel_token], ends, w_gate, w_up, w_down)
+    ys = ys * sel_gate[:, None].to(ys.dtype)
+    return torch.zeros((t, d), dtype=ys.dtype,
+                       device=x.device).index_add_(0, sel_token, ys)
+
+
+def apply_expert_parallel(params, x: torch.Tensor, cfg: MoEConfig, mesh,
+                          token_axes: tuple[str, ...],
+                          ep_axis: str = "model",
+                          capacity_factor: float = 2.0):
+    """Expert-parallel MoE layer: x [T, D] → (out [T, D], aux).  The
+    routing is the dropless layer's; the ``mesh.shape[ep_axis]`` expert
+    shards each take ``capacity = max(⌊T · k / n_ep · capacity_factor⌋,
+    8)`` pairs; ``token_axes`` must name one token shard.  Equal to
+    ``apply`` (within the products' rounding) when no pair drops."""
+    e, k = cfg.n_experts, cfg.top_k
+    probs, gates, ids = route(params, x, cfg)
+    n_ep = mesh.shape[ep_axis]
+    if e % n_ep:
+        raise ValueError(f"{e} experts do not split over {n_ep} shards")
+    if math.prod(mesh.shape[a] for a in token_axes) != 1:
+        raise ValueError("token shards on cards of their own need a "
+                         "multi-card host mesh, which the port does not "
+                         "place yet")
+    capacity = max(int(x.shape[0] * k / n_ep * capacity_factor), 8)
+    e_loc = e // n_ep
+    w = [params[n].to(x.dtype) for n in ("w_gate", "w_up", "w_down")]
+    out = None
+    for s in range(n_ep):
+        part = _ep_compute(x, ids, gates,
+                           *(wi[s * e_loc:(s + 1) * e_loc] for wi in w),
+                           s, capacity)
+        out = part if out is None else out + part
+    if cfg.n_shared:
+        out = out + layers.mlp_apply(params["shared"], x)
+    return out, aux_loss(probs, ids, cfg)
 
 
 def apply(params, x: torch.Tensor, cfg: MoEConfig):

@@ -1,5 +1,6 @@
 """Shared recsys config, loss and weight carrying (the JAX package's
-``models/recsys/base.py``, plus ``params_from_numpy``)."""
+``models/recsys/base.py``, plus ``params_from_numpy`` and
+``opt_state_from_numpy``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -97,3 +98,16 @@ def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t
+
+
+def opt_state_from_numpy(state: dict, device) -> dict:
+    """The JAX package's recsys train state (AdamW's ``m``, ``v`` and
+    ``step`` over the dense towers, and row-wise Adagrad's per-row
+    ``g2`` of each table), as numpy arrays, as the port's
+    (``launch.steps.recsys_opt_init``'s layout): float32 tensors on
+    ``device``, ``step`` an int32 scalar."""
+    out = {k: params_from_numpy(state[k], device, torch.float32)
+           for k in ("m", "v", "g2")}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=device)
+    return out

@@ -6,17 +6,28 @@ MoE FFN (``models/moe.py``, with deepseek's leading dense layers),
 uniform vs local:global layer patterns (gemma2/3) with sliding windows,
 qk-norm, sandwich norms, attention and final logit softcaps, per-kind
 RoPE bases, embedding scale, query scale, tied or untied embeddings and
-KV-head replication.  Training (``lm_loss``) belongs to a later slice
-(ROADMAP Queue 1 item 10).
+KV-head replication.  ``lm_loss`` is the training objective.
 
-The model is an ``nn.Module`` holding the weights — matrices (expert
-weights included) and the embedding in the compute dtype (rounded once;
-the reference rounds its float32 weights at every use to the same
-values), norms and the MoE router in float32 — with its layers in one
-``nn.ModuleList`` in the reference's order: head layers, then unit by
-unit the pattern's layers, then the tail.  ``forward``, ``prefill`` and
-``decode_step`` are a plain loop over it; the reference's scan, remat
-and sharding plumbing are JAX-only.
+The model is an ``nn.Module`` holding the weights with its layers in
+one ``nn.ModuleList`` in the reference's order: head layers, then unit
+by unit the pattern's layers, then the tail.  ``forward``, ``prefill``
+and ``decode_step`` are a plain loop over it.  Every layer function
+casts a weight to the compute dtype where it uses it, as the reference
+does.  Two forms of the weights:
+
+- serving (the default ``leaf_dtype=None``): matrices (expert weights
+  included) and the embedding in the compute dtype, rounded once (the
+  reference rounds its float32 weights at every use to the same
+  values), so each cast is a no-op; norms and the MoE router float32;
+  no gradient;
+- training (``leaf_dtype`` given, ``requires_grad=True``): every leaf in
+  ``leaf_dtype`` — float32 for the reference's float32 parameters,
+  bfloat16 for its optimized form's working copy (the float32 master
+  then lives in the optimizer state, ``launch/steps.py``).  Gradients
+  are taken with respect to these leaves through the casts.  With
+  ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` when
+  gradients are recorded (the reference's ``jax.checkpoint`` per scan
+  unit): backward keeps the layer inputs and recomputes the rest.
 
 Caches: a list with one dict per layer.  GQA layers hold ``{"k", "v"}``
 [B, Hkv, S, Dh]: global layers cache the full horizon, sliding-window
@@ -33,8 +44,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, mla as mla_mod, moe as moe_mod
@@ -178,20 +191,24 @@ class LMConfig:
 # the model and its weights
 # --------------------------------------------------------------------------
 
-def _leaf(name: str, value, cfg: LMConfig, device) -> nn.Parameter:
+def _leaf(name: str, value, cfg: LMConfig, device, leaf_dtype=None,
+          requires_grad: bool = False) -> nn.Parameter:
     # numpy leaves are copied: the model never aliases the caller's arrays
     t = value if isinstance(value, torch.Tensor) else torch.tensor(value)
-    dtype = cfg.compute_dtype if name in _MATRICES else torch.float32
+    if leaf_dtype is not None:
+        dtype = leaf_dtype
+    else:
+        dtype = cfg.compute_dtype if name in _MATRICES else torch.float32
     return nn.Parameter(t.to(device=device, dtype=dtype),
-                        requires_grad=False)
+                        requires_grad=requires_grad)
 
 
-def _rounded(tree: dict, cfg: LMConfig) -> dict:
-    """``tree`` with its matrices in the compute dtype (drawn float32
-    one layer at a time, so the float32 draw of the whole model never
-    exists at once)."""
-    return {k: _rounded(v, cfg) if isinstance(v, dict)
-            else v.to(cfg.compute_dtype) if k in _MATRICES else v
+def _rounded(tree: dict, dtype: torch.dtype) -> dict:
+    """``tree`` with its matrices in ``dtype`` (drawn float32 one layer
+    at a time, so the float32 draw of the whole model never exists at
+    once unless ``dtype`` is float32)."""
+    return {k: _rounded(v, dtype) if isinstance(v, dict)
+            else v.to(dtype) if k in _MATRICES else v
             for k, v in tree.items()}
 
 
@@ -199,16 +216,25 @@ class Weights(nn.Module):
     """A (nested) parameter tree with the reference's leaf names:
     ``w["w_q"]`` is a parameter, ``w["shared"]`` a sub-tree."""
 
-    def __init__(self, tree: dict, cfg: LMConfig, device):
+    def __init__(self, tree: dict, cfg: LMConfig, device, leaf_dtype=None,
+                 requires_grad: bool = False):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(k, Weights(v, cfg, device))
+                self.add_module(k, Weights(v, cfg, device, leaf_dtype,
+                                           requires_grad))
             else:
-                self.register_parameter(k, _leaf(k, v, cfg, device))
+                self.register_parameter(k, _leaf(k, v, cfg, device,
+                                                 leaf_dtype, requires_grad))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
+
+    def tree(self) -> dict:
+        """The parameters as a nested dict (sub-trees as dicts)."""
+        out = {k: p for k, p in self._parameters.items()}
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
 
 
 class Layer(nn.Module):
@@ -219,33 +245,40 @@ class Layer(nn.Module):
     reference's parameter tree."""
 
     def __init__(self, kind: str, moe: bool, tree: dict, cfg: LMConfig,
-                 device):
+                 device, leaf_dtype=None, requires_grad: bool = False):
         super().__init__()
         self.kind, self.moe = kind, moe
+        form = (cfg, device, leaf_dtype, requires_grad)
         self.norms = Weights({k: v for k, v in tree.items()
-                              if k not in ("attn", "mlp")}, cfg, device)
-        self.attn = Weights(tree["attn"], cfg, device)
-        self.mlp = Weights(tree["mlp"], cfg, device)
+                              if k not in ("attn", "mlp")}, *form)
+        self.attn = Weights(tree["attn"], *form)
+        self.mlp = Weights(tree["mlp"], *form)
+
+    def tree(self) -> dict:
+        return {**self.norms.tree(), "attn": self.attn.tree(),
+                "mlp": self.mlp.tree()}
 
 
 class LM(nn.Module):
     """The decoder: ``embed``, ``final_norm``, ``lm_head`` (untied only)
-    and ``layers``."""
+    and ``layers``.  ``tree`` has ``param_tree``'s layout; ``leaf_dtype``
+    and ``requires_grad`` choose the form (module docstring)."""
 
-    def __init__(self, cfg: LMConfig, tree: dict, device):
+    def __init__(self, cfg: LMConfig, tree: dict, device, leaf_dtype=None,
+                 requires_grad: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.embed = _leaf("embed", tree["embed"], cfg, device)
-        self.final_norm = _leaf("final_norm", tree["final_norm"], cfg,
-                                device)
+        form = (cfg, device, leaf_dtype, requires_grad)
+        self.embed = _leaf("embed", tree["embed"], *form)
+        self.final_norm = _leaf("final_norm", tree["final_norm"], *form)
         self.lm_head = (None if cfg.tie_embeddings
-                        else _leaf("lm_head", tree["lm_head"], cfg, device))
+                        else _leaf("lm_head", tree["lm_head"], *form))
         kinds = cfg.layer_kinds
         if len(tree["layers"]) != len(kinds):
             raise ValueError(f"{len(tree['layers'])} layer trees for "
                              f"{len(kinds)} layers")
         self.layers = nn.ModuleList(
-            Layer(kind, cfg.is_moe_layer(i), lt, cfg, device)
+            Layer(kind, cfg.is_moe_layer(i), lt, *form)
             for i, (kind, lt) in enumerate(zip(kinds, tree["layers"])))
 
     @property
@@ -253,7 +286,21 @@ class LM(nn.Module):
         return self.embed.device
 
 
-def _init_layer(gen, cfg: LMConfig, moe_layer: bool, device) -> dict:
+def param_tree(model: LM) -> dict:
+    """The model's parameters as a nested dict: ``embed``,
+    ``final_norm``, ``lm_head`` (untied only) and ``layers``, a list of
+    per-layer dicts (``ln1``, ``ln2``, ``post_ln1/2``, ``attn``,
+    ``mlp``) — the layout ``LM`` is built from, and the one the
+    optimizer state and the checkpoints mirror."""
+    out = {"embed": model.embed, "final_norm": model.final_norm,
+           "layers": [lp.tree() for lp in model.layers]}
+    if model.lm_head is not None:
+        out["lm_head"] = model.lm_head
+    return out
+
+
+def _init_layer(gen, cfg: LMConfig, moe_layer: bool, device,
+                mat_dtype: torch.dtype) -> dict:
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def zeros(n):
@@ -261,14 +308,15 @@ def _init_layer(gen, cfg: LMConfig, moe_layer: bool, device) -> dict:
 
     def dense(d_in, d_out):
         return layers.dense_init(gen, d_in, d_out, device=device) \
-            .to(cfg.compute_dtype)
+            .to(mat_dtype)
 
     lt = {"ln1": zeros(d), "ln2": zeros(d)}
     if cfg.post_norms:
         lt["post_ln1"] = zeros(d)
         lt["post_ln2"] = zeros(d)
     if cfg.mla is not None:
-        lt["attn"] = _rounded(mla_mod.init(gen, cfg.mla, d, h, device), cfg)
+        lt["attn"] = _rounded(mla_mod.init(gen, cfg.mla, d, h, device),
+                              mat_dtype)
     else:
         lt["attn"] = {"w_q": dense(d, h * hd), "w_k": dense(d, hkv * hd),
                       "w_v": dense(d, hkv * hd), "w_o": dense(h * hd, d)}
@@ -276,7 +324,8 @@ def _init_layer(gen, cfg: LMConfig, moe_layer: bool, device) -> dict:
             lt["attn"]["q_norm"] = zeros(hd)
             lt["attn"]["k_norm"] = zeros(hd)
     if moe_layer:
-        lt["mlp"] = _rounded(moe_mod.init(gen, cfg.moe, d, device), cfg)
+        lt["mlp"] = _rounded(moe_mod.init(gen, cfg.moe, d, device),
+                             mat_dtype)
     else:
         ff = cfg.dense_d_ff or cfg.d_ff
         lt["mlp"] = {"w_gate": dense(d, ff), "w_up": dense(d, ff),
@@ -284,34 +333,37 @@ def _init_layer(gen, cfg: LMConfig, moe_layer: bool, device) -> dict:
     return lt
 
 
-def init(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
+def init(cfg: LMConfig, generator: torch.Generator, device=None,
+         leaf_dtype=None, requires_grad: bool = False) -> LM:
     """Random weights with the reference's init distributions (normal ×
     d_in^-1/2 matrices and experts, normal × 0.01 embedding, zero norms),
     drawn layer by layer from ``generator`` on ``device`` (the
-    generator's own device by default) and rounded to the compute dtype
-    as they are drawn.  A torch generator does not replay
-    ``jax.random``; tests carry the reference's weights with
-    ``params_from_numpy``."""
+    generator's own device by default) and rounded, as they are drawn,
+    to the compute dtype (serving) or ``leaf_dtype`` (a training form).
+    A torch generator does not replay ``jax.random``; tests carry the
+    reference's weights with ``params_from_numpy``."""
     device = generator.device if device is None else torch.device(device)
+    mat_dtype = cfg.compute_dtype if leaf_dtype is None else leaf_dtype
     d = cfg.d_model
     tree = {"embed": layers.embed_init(generator, cfg.vocab, d,
-                                       device=device).to(cfg.compute_dtype),
+                                       device=device).to(mat_dtype),
             "final_norm": torch.zeros((d,), dtype=torch.float32,
                                       device=device)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = layers.dense_init(
-            generator, d, cfg.vocab, device=device).to(cfg.compute_dtype)
+            generator, d, cfg.vocab, device=device).to(mat_dtype)
     tree["layers"] = [_init_layer(generator, cfg, cfg.is_moe_layer(i),
-                                  device)
+                                  device, mat_dtype)
                       for i in range(cfg.n_layers)]
-    return LM(cfg, tree, device)
+    return LM(cfg, tree, device, leaf_dtype, requires_grad)
 
 
-def params_from_numpy(cfg: LMConfig, tree: dict, device) -> LM:
-    """The reference's parameter pytree (``T.init``), as numpy arrays,
-    as the port's model.  ``scan`` leaves carry a leading [n_units]
-    axis (the MoE experts' [n_units, E, ...]); layers are taken head,
-    then unit by unit ``l0..l{P-1}``, then tail."""
+def tree_from_reference(cfg: LMConfig, tree: dict) -> dict:
+    """A tree in the layout of the reference's parameters (``T.init``:
+    ``head``, ``scan`` with a leading [n_units] axis, ``tail``) in
+    ``param_tree``'s layout: layers taken head, then unit by unit
+    ``l0..l{P-1}``, then tail.  Leaves are passed through (an optimizer
+    moment tree has the same layout)."""
 
     def unit_slice(sub, u):
         if isinstance(sub, dict):
@@ -327,7 +379,41 @@ def params_from_numpy(cfg: LMConfig, tree: dict, device) -> LM:
            "layers": flat}
     if not cfg.tie_embeddings:
         out["lm_head"] = tree["lm_head"]
-    return LM(cfg, out, torch.device(device))
+    return out
+
+
+def params_from_numpy(cfg: LMConfig, tree: dict, device, leaf_dtype=None,
+                      requires_grad: bool = False) -> LM:
+    """The reference's parameter pytree (``T.init``), as numpy arrays,
+    as the port's model, in the form ``leaf_dtype``/``requires_grad``
+    choose (serving by default)."""
+    return LM(cfg, tree_from_reference(cfg, tree), torch.device(device),
+              leaf_dtype, requires_grad)
+
+
+def _tensors(tree, device, dtype=None):
+    """A numpy tree as tensors on ``device`` (copies), cast to ``dtype``
+    when given."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, device, dtype) for v in tree]
+    t = torch.tensor(np.asarray(tree), device=device)
+    return t if dtype is None else t.to(dtype)
+
+
+def opt_state_from_numpy(cfg: LMConfig, state: dict, device) -> dict:
+    """The reference's AdamW state (``adamw_init`` and its updates:
+    ``m``, ``v``, ``step`` and, in the optimized form, the float32
+    ``master``), as numpy arrays, as the port's: ``m``, ``v`` (float32)
+    and ``master`` in ``param_tree``'s layout, ``step`` an int32
+    scalar."""
+    out = {k: _tensors(tree_from_reference(cfg, state[k]), device,
+                       torch.float32)
+           for k in ("m", "v", "master") if k in state}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=device)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -341,10 +427,10 @@ def _norm(x, w):
 def _gqa_project(lp: Layer, x, cfg: LMConfig, positions, base):
     b, l, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    a = lp.attn
-    q = (x @ a["w_q"]).view(b, l, h, hd).transpose(1, 2)
-    k = (x @ a["w_k"]).view(b, l, hkv, hd).transpose(1, 2)
-    v = (x @ a["w_v"]).view(b, l, hkv, hd).transpose(1, 2)
+    a, dt = lp.attn, x.dtype
+    q = (x @ a["w_q"].to(dt)).view(b, l, h, hd).transpose(1, 2)
+    k = (x @ a["w_k"].to(dt)).view(b, l, hkv, hd).transpose(1, 2)
+    v = (x @ a["w_v"].to(dt)).view(b, l, hkv, hd).transpose(1, 2)
     if cfg.qk_norm:
         q = layers.rms_norm(q, a["q_norm"], unit_offset=True)
         k = layers.rms_norm(k, a["k_norm"], unit_offset=True)
@@ -362,10 +448,11 @@ def _rope_base_for(cfg: LMConfig, kind: str) -> float:
     return cfg.rope_base
 
 
-def _attn_out(lp: Layer, o, x):
+def _attn_out(lp: Layer, o):
     """[B, H, L, hd] attention output → [B, L, d_model]."""
     b, h, l, hd = o.shape
-    return o.transpose(1, 2).reshape(b, l, h * hd) @ lp.attn["w_o"]
+    return o.transpose(1, 2).reshape(b, l, h * hd) \
+        @ lp.attn["w_o"].to(o.dtype)
 
 
 def _mlp_block(lp: Layer, x, a, cfg: LMConfig):
@@ -406,7 +493,7 @@ def _layer_full(lp: Layer, x, cfg: LMConfig, positions, backend):
             window=cfg.window if kind == "local" else None,
             softcap=cfg.attn_softcap, backend=backend,
         )
-        a, kv = _attn_out(lp, o, x), {"k": k, "v": v}
+        a, kv = _attn_out(lp, o), {"k": k, "v": v}
     x, aux = _mlp_block(lp, x, a, cfg)
     return x, aux, kv
 
@@ -416,7 +503,7 @@ def _layer_full(lp: Layer, x, cfg: LMConfig, positions, backend):
 # --------------------------------------------------------------------------
 
 def _embed(model: LM, tokens, cfg: LMConfig):
-    x = model.embed[tokens]
+    x = model.embed[tokens].to(cfg.compute_dtype)
     if cfg.embed_scale:
         # √d rounded to the compute dtype first, as the reference does;
         # rounded on the host, so nothing waits for the device
@@ -428,7 +515,7 @@ def _embed(model: LM, tokens, cfg: LMConfig):
 def _unembed(model: LM, x, cfg: LMConfig):
     x = layers.rms_norm(x, model.final_norm, unit_offset=True)
     w = model.embed.T if cfg.tie_embeddings else model.lm_head
-    logits = (x @ w).to(torch.float32)
+    logits = (x @ w.to(x.dtype)).to(torch.float32)
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -438,21 +525,47 @@ def _positions(b: int, l: int, device):
     return torch.arange(l, device=device).expand(b, l)
 
 
+def _layer_train(lp: Layer, x, cfg: LMConfig, positions, backend):
+    """(x, aux) of one layer; aux 0 for a dense layer."""
+    x, aux, _ = _layer_full(lp, x, cfg, positions, backend)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
 def forward(model: LM, tokens, cfg: LMConfig | None = None,
             backend: str = "auto"):
     """Full-sequence forward.  tokens [B, L] → (logits [B, L, V] f32,
     aux): aux is the MoE layers' summed load-balance loss (0 without
-    MoE layers)."""
+    MoE layers).  With ``cfg.remat``, while gradients are recorded,
+    each layer is checkpointed (its activations recomputed in
+    backward)."""
     cfg = model.cfg if cfg is None else cfg
     b, l = tokens.shape
     positions = _positions(b, l, tokens.device)
     x = _embed(model, tokens, cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
-        x, aux, _ = _layer_full(lp, x, cfg, positions, backend)
-        if aux is not None:
-            aux_total = aux_total + aux
+        if remat:
+            x, aux = checkpoint(_layer_train, lp, x, cfg, positions, backend,
+                                use_reentrant=False)
+        else:
+            x, aux = _layer_train(lp, x, cfg, positions, backend)
+        aux_total = aux_total + aux
     return _unembed(model, x, cfg), aux_total
+
+
+def lm_loss(model: LM, tokens, targets, cfg: LMConfig | None = None,
+            backend: str = "blockwise") -> torch.Tensor:
+    """Next-token cross entropy (mean over tokens) + the MoE aux loss.
+    The logits and their logsumexp are float32.  ``backend`` defaults to
+    the blockwise attention, which has a backward: the flash kernel is
+    forward-only and refuses gradients."""
+    logits, aux = forward(model, tokens, cfg, backend)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.to(torch.int64)[..., None])[..., 0]
+    return (logz - gold).mean() + aux
 
 
 # --------------------------------------------------------------------------
@@ -595,7 +708,7 @@ def _gqa_decode(lp: Layer, xin, cache, cfg: LMConfig, lengths, positions):
             q, k_cache, v_cache, lengths, scale=cfg.attn_scale,
             window=cfg.window if kind == "local" else None,
             softcap=cfg.attn_softcap)
-    return _attn_out(lp, o, xin)
+    return _attn_out(lp, o)
 
 
 def _layer_decode(lp: Layer, x, cache, cfg: LMConfig, lengths):

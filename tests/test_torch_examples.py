@@ -2,8 +2,9 @@
 what it shows (entity recall, IVF exact mode equal to the flat scan,
 zero torn reads under live ingest, crash recovery from the journal,
 LRU eviction with durable state, quota rejections carrying the
-tenant, micro-batched RAG serving with gemma2 SMOKE generation), and
-exits cleanly."""
+tenant, micro-batched RAG serving with gemma2 SMOKE generation, the
+train/checkpoint/restart-replay run of ``train_lm``), and exits
+cleanly."""
 import contextlib
 import io
 
@@ -15,6 +16,7 @@ from repro_torch.examples import (
     multi_tenant,
     quickstart,
     rag_serve,
+    train_lm,
 )
 
 # the suite runs test files in parallel workers: keep this file's torch
@@ -64,8 +66,15 @@ def test_rag_serve():
 
 
 @pytest.mark.parametrize("example", [quickstart, live_sync, multi_tenant,
-                                     rag_serve])
+                                     rag_serve, train_lm])
 def test_examples_default_to_the_card(example, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         example.main([])
+
+
+def test_train_lm():
+    out = _run(train_lm)
+    assert "restored checkpoint at step 60" in out
+    assert "step    99  loss" in out
+    assert "final loss" in out

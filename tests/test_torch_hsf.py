@@ -104,6 +104,21 @@ def test_stable_rowdot_dense_inputs(d):
                                rtol=1e-6, atol=1e-6 * scale)
 
 
+@pytest.mark.parametrize("per_chunk", [1, 2, 7])
+def test_batched_rowdot_is_stable_rowdot_in_any_chunk(monkeypatch,
+                                                      per_chunk):
+    """``batched_rowdot`` (the HSF top-k plain version's cosines) gives
+    each query ``stable_rowdot``'s bits, whatever number of queries its
+    chunks of products hold."""
+    mat, _, _, _ = _dense(37, 100, 4, 4)
+    vecs = np.random.default_rng(5).normal(size=(7, 100)).astype(np.float32)
+    monkeypatch.setattr(hsf, "ROWDOT_CHUNK_BYTES", per_chunk * mat.nbytes)
+    got = hsf.batched_rowdot(torch.from_numpy(mat), torch.from_numpy(vecs))
+    assert got.shape == (7, 37)
+    for i, v in enumerate(vecs):
+        np.testing.assert_array_equal(got[i].numpy(), _numpy_rowdot(mat, v))
+
+
 @pytest.mark.parametrize("w", [1, 4, 128])
 def test_containment_bit_identical_with_sign_bit_words(w):
     _, _, sigs, qsig = _dense(64, 8, w, w)

@@ -138,11 +138,31 @@ def test_moe_init_draws_the_reference_shapes():
                    if isinstance(t, torch.Tensor))
 
 
-def test_moe_multi_device_forms_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        moe.sharding_ctx(None, ("data",))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        moe.apply_expert_parallel({}, None, None, None, ("data",))
+def test_moe_multi_device_forms_are_ported():
+    """The token-sharded dispatch (``sharding_ctx``) changes nothing on
+    one device, and the expert-parallel form runs on logical expert
+    shards of it; token shards on cards of their own raise.  Their
+    parity with the JAX package is in ``tests/test_torch_train.py``."""
+    from repro_torch.launch.mesh import HostMesh, make_host_mesh
+
+    rc, cfg, params = _moe_case("qwen3-moe-30b-a3b")
+    port = {k: torch.tensor(np.asarray(v)) for k, v in params.items()
+            if not isinstance(v, dict)}
+    x = torch.tensor(np.random.default_rng(0).normal(
+        size=(8, rc.d_model)).astype(np.float32))
+    want, aux = moe.apply(port, x, cfg)
+    mesh = make_host_mesh(2, "cpu")
+    assert mesh.shape == {"data": 1, "model": 2}
+    with moe.sharding_ctx(mesh, ("data",)):
+        got, _ = moe.apply(port, x, cfg)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    got, got_aux = moe.apply_expert_parallel(port, x, cfg, mesh, ("data",),
+                                             capacity_factor=16.0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert float(got_aux) == float(aux)
+    two = HostMesh({"data": 2, "model": 2}, (torch.device("cpu"),) * 4)
+    with pytest.raises(ValueError, match="multi-card host mesh"):
+        moe.apply_expert_parallel(port, x, cfg, two, ("data",))
 
 
 # ---------------------------------------------------------------------------

@@ -141,10 +141,8 @@ def test_serve_and_retrieval_steps_match_jax(arch):
     assert tied and all(ids[p] > ids[p - 1] for p in tied)
 
 
-def test_steps_need_a_device_or_a_card_and_train_is_not_ported(monkeypatch):
+def test_steps_need_a_device_or_a_card(monkeypatch):
     cfg = configs.get("dlrm-rm2").smoke_config
-    with pytest.raises(NotImplementedError, match="item 10"):
-        steps.make_recsys_step("dlrm-rm2", cfg, "recsys_train", device="cpu")
     with pytest.raises(ValueError, match="kind"):
         steps.make_recsys_step("dlrm-rm2", cfg, "recsys_dream", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -355,3 +355,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_kernel_path_on_the_cpu_gives_a_query_the_same_bits_at_any_batch():
+    """The kernel path's plain version (the CPU's) keeps the card
+    kernel's contract: a query's ids, scores and cosines inside a batch
+    of 2-4 equal its own at B = 1, bit for bit (one gemm over the batch
+    used to round them by the batch's size)."""
+    from repro_torch.core.engine import QueryEngine
+
+    kb, entities = _kb()
+    queries = list(entities) + ["quarterly forecast", "server latency",
+                                "NEW-DOC-CODE", "audit ledger"]
+    engine = QueryEngine(kb, scoring_path="kernel", device="cpu")
+    alone = {q: engine.query_batch([q], k=3)[0] for q in queries}
+    checked = 0
+    for size in (2, 3, 4):
+        for start in range(len(queries)):
+            batch = [queries[(start + i) % len(queries)]
+                     for i in range(size)]
+            for q, res in zip(batch, engine.query_batch(batch, k=3)):
+                assert results_equal(res, alone[q]), (size, batch, q)
+                for a, b in zip(res, alone[q]):
+                    assert (a.score, a.cosine) == (b.score, b.cosine)
+                checked += 1
+    assert checked == (2 + 3 + 4) * len(queries)

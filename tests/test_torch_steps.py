@@ -17,7 +17,8 @@ same functions are captured into CUDA graphs and replayed, which
   deepseek-v2-lite-16b SMOKE prefill_32k and decode_32k, cut in batch
   and seq; dlrm-rm2 and deepfm SMOKE serve_p99 and retrieval_cand at
   their full shapes, rtol/atol 1e-5 as `tests/test_torch_recsys.py`);
-- the kinds that are not ported, and the launch-count arithmetic a
+- the kinds that are not ported (the GNN's; the train kinds are held
+  in ``tests/test_torch_train.py``), and the launch-count arithmetic a
   captured step applies.
 """
 import functools
@@ -337,8 +338,6 @@ def test_a_captured_step_takes_new_inputs_into_its_buffers():
 
 
 @pytest.mark.parametrize("arch,shape_id,item", [
-    ("llama3.2-3b", "train_4k", "item 10"),
-    ("dlrm-rm2", "train_batch", "item 10"),
     ("mace", "full_graph_sm", "item 11"),
     ("mace", "minibatch_lg", "item 11"),
     ("mace", "molecule", "item 11"),
