@@ -202,7 +202,8 @@ Phases (any failure raises and the script exits non-zero):
    uninterrupted run, save and restore seconds.
 
 The second line from the end is a JSON ``kernels`` record; the last is
-``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
+``{"ok": true, "device": {...}}``.  ``--kernel-timings`` runs phase 1's
+build and phase 4's timings alone and prints them as one JSON line.  With no CUDA device, or without the
 repository's ``src/repro_torch`` beside it, the script exits non-zero
 and prints no result.
 """
@@ -506,7 +507,117 @@ def phase_kernel(torch, np, ops, ref):
             ("B = 1 vs B = 64", row)
     _log("  kernel: 16 queries scored at B = 1 give the ids and score bits "
          "they get inside B = 64")
-    return worst
+    del dv, ds, qv, qs
+    return max(worst, _nan_cases(torch, np, ops, ref, gen))
+
+
+def _float_bits(torch, bits):
+    """A float32 scalar tensor with the given int32 bit pattern."""
+    return torch.tensor([bits], dtype=torch.int32).view(torch.float32)[0]
+
+
+def _nan_cases(torch, np, ops, ref, gen):
+    """The fused HSF top-k on poisoned doc rows against its plain
+    version: a NaN score ranks above +inf whatever its sign, NaNs in id
+    order, each with its own id; a -inf score is no candidate.  The
+    leading NaN and +inf slots must equal the plain version's in ids and
+    value bits, the rest as ``_check_against_plain`` holds them."""
+    nan = float("nan")
+    neg_nan = _float_bits(torch, -4_194_304)  # 0xFFC00000
+    n = 20_011
+    worst = 0.0
+
+    def case(name, prep, n_valid=None, k=TOP_K, rows=n):
+        dv, ds, qv, qs = _make_operands(torch, gen, rows, DIM, SIG_WORDS,
+                                        BATCH)
+        prep(dv, qv)
+        kv, ki = ops.hsf_score_batched(dv, ds, qv, qs, k=k, alpha=ALPHA,
+                                       beta=BETA, n_valid=n_valid)
+        torch.cuda.synchronize()
+        pv, pi = ops._with_sentinels(*ref.hsf_score_topk_ref(
+            dv, ds, qv, qs, ALPHA, BETA, min(rows, k + 32),
+            n_valid=n_valid))
+        kv, ki = kv.cpu().numpy(), ki.cpu().numpy()
+        pv, pi = pv.cpu().numpy(), pi.cpu().numpy()
+        lead, err = [], 0.0
+        for row in range(BATCH):
+            # the NaN and +inf head of the row: exact ids and bits
+            m = int(np.sum(np.isnan(pv[row, :k]) | np.isposinf(pv[row, :k])))
+            assert np.array_equal(ki[row, :m], pi[row, :m]), \
+                (name, row, ki[row, :m], pi[row, :m])
+            assert np.array_equal(kv[row, :m].view(np.int32),
+                                  pv[row, :m].view(np.int32)), \
+                (name, row, kv[row, :m].view(np.int32),
+                 pv[row, :m].view(np.int32))
+            lead.append(m)
+            err = max(err, _check_against_plain(
+                np, kv[row:row + 1, m:], ki[row:row + 1, m:],
+                pv[row:row + 1, m:], pi[row:row + 1, m:], ops.ID_SENTINEL,
+                f"{name} row {row}"))
+        _log(f"  kernel == plain: {name:34s} N={rows} k={k} "
+             f"n_valid={n_valid}: NaN/+inf heads of {min(lead)}-{max(lead)} "
+             f"slots equal in ids and value bits, ids "
+             f"{ki[0, :min(6, k)].tolist()}..., max |Δscore| {err:.3e}")
+        del dv, ds, qv, qs
+        return err, ki
+
+    def nan_rows(dv, qv):
+        dv[[5, 777, n - 1]] = nan
+
+    err, ki = case("NaN rows", nan_rows)
+    assert (ki[:, :3] == [5, 777, n - 1]).all()
+    worst = max(worst, err)
+
+    def many_nan(dv, qv):
+        dv[torch.arange(40, device="cuda") * 499] = nan
+
+    err, ki = case("40 NaN rows, k = 16", many_nan)
+    assert (ki == np.arange(16) * 499).all()
+    worst = max(worst, err)
+
+    def signed_nan(dv, qv):
+        dv[9] = neg_nan
+        dv[3] = nan
+        dv[100, 17] = neg_nan  # one NaN element poisons the row
+
+    err, ki = case("NaN with its sign bit set", signed_nan)
+    assert (ki[:, :3] == [3, 9, 100]).all()
+    worst = max(worst, err)
+
+    def padded_nan(dv, qv):
+        dv[[7, 15_000]] = nan  # 15,000 lies past n_valid
+
+    err, ki = case("NaN beside -inf padding", padded_nan, n_valid=12_345)
+    assert (ki[:, 0] == 7).all() and not (ki == 15_000).any()
+    worst = max(worst, err)
+
+    def few_valid(dv, qv):
+        dv[3] = nan
+
+    err, ki = case("NaN, k > n_valid (sentinels)", few_valid, n_valid=7)
+    assert (ki[:, 0] == 3).all() and (ki[:, 7:] == ops.ID_SENTINEL).all()
+    worst = max(worst, err)
+
+    def infinities(dv, qv):
+        # an overflowing product: 3e38 × ±2 is ±inf in f32 on both sides
+        dv[11, 0] = 3e38
+        qv[:, 0] = torch.tensor([2.0, -2.0], device="cuda").repeat(
+            BATCH // 2)
+        dv[4] = nan
+
+    err, ki = case("NaN, +inf and -inf scores", infinities)
+    assert (ki[:, 0] == 4).all() and (ki[0::2, 1] == 11).all()
+    assert not (ki[1::2] == 11).any()
+    worst = max(worst, err)
+
+    def mostly_neg_inf(dv, qv):
+        dv[5:, 0] = 3e38
+        qv[:, 0] = -2.0
+        dv[2] = nan
+
+    err, ki = case("-inf docs in the top k", mostly_neg_inf, rows=1_000)
+    assert (ki[:, 0] == 2).all() and (ki[:, 5:] == ops.ID_SENTINEL).all()
+    return max(worst, err)
 
 
 def phase_hsf_score_kernel(torch, np, ops, ref):
@@ -623,6 +734,32 @@ def phase_topk_kernel(torch, np, tk_ops, tk_ref):
     cases.append(("[1, -inf, 2, -inf, 1]", torch.tensor(
         [1.0, ninf, 2.0, ninf, 1.0], device="cuda"), 5))
     cases.append(("all -inf", torch.full((3000,), ninf, device="cuda"), 7))
+    # NaN: above +inf whatever its sign and payload, NaNs in id order,
+    # each with its own id and bits (the JAX kernel's order)
+    neg_nan = _float_bits(torch, -4_194_304)       # 0xFFC00000
+    payload_nan = _float_bits(torch, 2_143_289_635)  # 0x7FC00123
+
+    def with_nan(n, many):
+        s = with_inf(n)
+        at = torch.randperm(n, device="cuda", generator=gen)[:many + 3]
+        s[at[:many]] = float("nan")
+        s[at[many]], s[at[many + 1]] = neg_nan, payload_nan
+        s[at[many + 2]] = ninf
+        return s
+
+    for n in (N_DOCS, TOPK_LONG_N):
+        for many, k in ((3, 16), (3, 128), (400, 128)):
+            cases.append((f"{many + 2} NaN (±, payload), ±inf N={n}",
+                          with_nan(n, many), k))
+        cases.append((f"all NaN N={n}",
+                      torch.full((n,), float("nan"), device="cuda"), 16))
+    nan_pad = padded(RETRIEVAL_PAD, RETRIEVAL_N)
+    nan_pad[[17, RETRIEVAL_N - 1, RETRIEVAL_N + 5]] = float("nan")
+    nan_pad[99] = neg_nan
+    cases.append((f"NaN beside -inf pad N={RETRIEVAL_PAD}", nan_pad, 16))
+    few = torch.full((3000,), ninf, device="cuda")
+    few[[10, 2999]], few[400] = float("nan"), 1.0
+    cases.append(("2 NaN, 1 finite, rest -inf", few, 7))
     cases.append(("all -inf N=1,000,448", torch.full(
         (RETRIEVAL_PAD,), ninf, device="cuda"), 16))
     for name, scores, k in cases:
@@ -2082,7 +2219,7 @@ def phase_compiled_generation(torch, T, steps, fa_ops, cfg, model, ctx):
         tokens[:, n:] = 0
         return tokens, torch.tensor([n], dtype=torch.int32, device="cuda")
 
-    buckets = sorted({gs.bucket(n) for n in range(1, gs.max_context + 1)})
+    buckets = gs.buckets()
     for bucket in buckets:
         step = gs.prefill(bucket)
         for n in (bucket, bucket // 2 + 1):  # two prompts, one graph
@@ -4253,6 +4390,215 @@ def phase_training(torch, np, fa_ops, tmp):
     return full, recsys
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the analysis plane's guards on the main path
+# ---------------------------------------------------------------------------
+
+SANITIZED_MAX_BATCH = 16  # the runtime's flush cap: sizes 1..16 driven
+POISON_ROW = 4_321        # the doc row poisoned in a copy of the tensors
+
+
+def _trips(rule: str) -> float:
+    from repro_torch.obs.metrics import global_registry
+
+    return sum(c.value for labels, c in global_registry().series(
+        "ragdb_sanitizer_trips_total").items()
+        if dict(labels).get("rule") == rule)
+
+
+def _poisoned_paths(torch, sanitizers, snap, entities):
+    """A copy of the served tensors with one doc row poisoned (NaN, then
+    +inf), served through the snapshot's scoring on the map, gemm and
+    kernel paths: each must trip the finite-score guard once (the
+    poisoned row scores NaN, which ranks first on every path); the
+    unpoisoned copy serves finite scores on each path first."""
+    import dataclasses
+
+    code, doc_idx = next(iter(entities.items()))
+    out = []
+    for path in ("map", "gemm", "kernel"):
+        clean = dataclasses.replace(snap, scoring_path=path,
+                                    kernel_operands=None)
+        top = clean.query_batch([code], k=TOP_K)[0][0]
+        assert top.doc_id == f"doc_{doc_idx:05d}.txt" and top.boosted, \
+            (path, top)
+        for poison in (float("nan"), float("inf")):
+            dv = snap.doc_vecs.clone()
+            dv[POISON_ROW] = poison
+            bad = dataclasses.replace(clean, doc_vecs=dv)
+            before = _trips("finite-scores")
+            try:
+                bad.query_batch([code], k=TOP_K)
+            except sanitizers.SanitizerError as exc:
+                assert "non-finite" in str(exc), exc
+            else:
+                raise AssertionError(f"{path}: a {poison} row did not trip")
+            assert _trips("finite-scores") == before + 1, (path, poison)
+            out.append(f"{path}/{poison}")
+            del bad, dv
+        torch.cuda.synchronize()
+    return out
+
+
+def phase_sanitized_serving(torch, ops, fa_ops, ctx):
+    """Phase 14: phase 3's container served at full width through
+    ``ServingRuntime`` + ``RAGPipeline`` under ``RAGDB_SANITIZERS=1``:
+    the guards armed at k = 16 (every query bucket warmed, every prompt
+    bucket and the decode step captured), then every flush size 1 ..
+    SANITIZED_MAX_BATCH with generation — phase 3's ids, scores and
+    tokens, no trip, no capture; a generation step the runtime did not
+    warm, captured after arming, raising once and counting one trip; a
+    poisoned copy of the served tensors tripping the finite-score guard
+    on the map, gemm and kernel paths; and the static analyzer, strict
+    against the committed audit, as a subprocess.  Returns the HSF and
+    flash launches of the served flushes."""
+    import os
+
+    from repro_torch.analysis import sanitizers
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core.ingest import KnowledgeBase
+    from repro_torch.core.rag import RAGPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ServingRuntime
+
+    os.environ[sanitizers.ENV_FLAG] = "1"
+    sanitizers._enabled = None  # read the flag
+    assert sanitizers.enabled()
+    t0 = time.perf_counter()
+    kb = KnowledgeBase.load(ctx["container"])
+    cfg = get_arch(ARCH).config
+    model = _served_model(torch, T, cfg)
+    rt = ServingRuntime(kb, max_batch=SANITIZED_MAX_BATCH,
+                        flush_deadline=0.05, result_cache_size=0)
+    assert rt.engine.device.type == "cuda"
+    assert rt.engine.scoring_path == "kernel"
+    rag = RAGPipeline(kb, model, cfg, engine=rt.engine)
+    _log(f"  set-up: container loaded, {cfg.name} FULL initialised "
+         f"({time.perf_counter() - t0:.1f} s)")
+    retrace0 = _trips("retrace")
+    queries, flat, tokens = ctx["queries"], ctx["flat"], ctx["tokens"]
+    with rt:
+        t1 = time.perf_counter()
+        rt.arm_sanitizers(k=TOP_K, rag=rag, max_new_tokens=MAX_NEW_TOKENS)
+        steps = rag.steps
+        assert rt.retrace_guard.armed and rag.retrace_guard is rt.retrace_guard
+        assert steps.captures == len(steps.buckets()) + 1, steps.captures
+        armed_counts = sanitizers.capture_counts()
+        _log(f"  arm_sanitizers(k={TOP_K}): query buckets 1..."
+             f"{SANITIZED_MAX_BATCH} warmed, prompt buckets "
+             f"{steps.buckets()} + decode captured ({steps.captures} graphs,"
+             f" {time.perf_counter() - t1:.2f} s)")
+
+        # the counts are zeroed just before the served flushes, read after
+        ops.reset_counts()
+        fa_ops.reset_counts()
+        before = rt.metrics.snapshot()
+        t2 = time.perf_counter()
+        at, served = 0, 0
+        for size in range(1, SANITIZED_MAX_BATCH + 1):
+            batch = [queries[(at + j) % len(queries)] for j in range(size)]
+            at += size
+            futs = [rt.submit(q, k=TOP_K) for q in batch]
+            for q, fut in zip(batch, futs):
+                res = fut.result(timeout=120).results
+                assert [(r.doc_id, r.boosted, f"{r.score:.4f}")
+                        for r in res] == flat[q], (size, q)
+                out = rag.generate(q, res, MAX_NEW_TOKENS)
+                assert out.token_ids == tokens[q], (size, q, out.token_ids)
+                served += 1
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t2
+        launches = dict(ops.counts)
+        fa = dict(fa_ops.counts)
+        after = rt.metrics.snapshot()
+        flushes = after["batches"] - before["batches"]
+        assert flushes == SANITIZED_MAX_BATCH, (flushes, before, after)
+        assert after["batch_occupancy_max"] == SANITIZED_MAX_BATCH, after
+        assert launches["launches"] == flushes and launches["unfused"] == 0, \
+            launches
+        assert fa == {"launches": N_LAYERS * served, "plain": 0}, fa
+        assert rt.retrace_guard.report() == {}
+        assert sanitizers.capture_counts() == armed_counts
+        assert _trips("retrace") == retrace0
+        _log(f"  flush sizes 1..{SANITIZED_MAX_BATCH}: {served} requests in "
+             f"{flushes} flushes, each generating {MAX_NEW_TOKENS} tokens "
+             f"({drive_s:.1f} s): phase 3's ids, scores and tokens; HSF "
+             f"launches {launches['launches']} (= flushes, 0 unfused), flash "
+             f"launches {fa['launches']} (= {N_LAYERS} × {served}, 0 plain); "
+             "0 trips, 0 captures after arming")
+
+        # a generation step the runtime did not warm, wired to its guard
+        q = queries[0]
+        res = rt.submit(q, k=TOP_K).result(timeout=120).results
+        cold = RAGPipeline(kb, model, cfg, engine=rt.engine)
+        cold.retrace_guard = rt.retrace_guard
+        try:
+            cold.generate(q, res, MAX_NEW_TOKENS)
+        except sanitizers.SanitizerError as exc:
+            msg = str(exc)
+        else:
+            raise AssertionError("a capture after arming did not trip")
+        bucket = cold.steps.bucket(len(_prompt(cold, res, q)))
+        grew = re.search(re.escape(f"{cfg.name}.prefill[{bucket}]: ")
+                         + r"(\d+)→(\d+)", msg)
+        assert grew and int(grew[2]) == int(grew[1]) + 1, msg
+        assert _trips("retrace") == retrace0 + 1
+        again = cold.generate(q, res, MAX_NEW_TOKENS)  # rebased: silent
+        assert again.token_ids == tokens[q]
+        assert _trips("retrace") == retrace0 + 1
+        _log(f"  a prompt through an unwarmed GenerationSteps after arming: "
+             f"one SanitizerError, one retrace trip ({msg[:120]}...); the "
+             "guard rebased, the next request silent with phase 3's tokens")
+        del cold
+
+        poisoned = _poisoned_paths(torch, sanitizers, rt.snapshots.current,
+                                   ctx["entities"])
+        _log(f"  a copy of the served tensors with doc row {POISON_ROW} "
+             f"poisoned: the finite-score guard tripped once each on "
+             f"{', '.join(poisoned)}; the clean copy served the entity doc "
+             "first on each path")
+    del rag, model, kb, rt
+    os.environ.pop(sanitizers.ENV_FLAG)
+    sanitizers._enabled = None
+    torch.cuda.empty_cache()
+
+    t3 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--strict",
+         "--check-audit", "docs/ANALYSIS_AUDIT_TORCH.md"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, (proc.returncode, proc.stdout[-2000:],
+                                  proc.stderr[-2000:])
+    _log(f"  python -m repro_torch.analysis --strict --check-audit "
+         f"docs/ANALYSIS_AUDIT_TORCH.md: exit 0, "
+         f"{proc.stdout.strip().splitlines()[-1]} "
+         f"({time.perf_counter() - t3:.1f} s)")
+    return launches["launches"], fa["launches"]
+
+
+def kernel_timings(torch) -> int:
+    """``python3 chip_smoke.py --kernel-timings``: phase 1's build and
+    phase 4's timings alone, as one JSON line (kernel ms of each shape).
+    A copy of this script beside another checkout's ``src/`` times that
+    checkout's kernels with the same code, so two versions compare
+    within one call (parent, change, change, parent)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.hsf_score import ops, ref
+    from repro_torch.kernels.topk import ops as tk_ops
+    from repro_torch.kernels.topk import ref as tk_ref
+
+    build.build_all()
+    topk = phase_timings(torch, ops, ref)
+    rest = phase_new_kernel_timings(torch, ops, ref, tk_ops, tk_ref)
+    print(json.dumps({
+        "source": str(SRC), "hsf_score_topk": topk["ms"],
+        "hsf_score": rest["score"]["ms"],
+        "top_k": {f"{n},{k}": t["ms"] for key, t in rest.items()
+                  if key != "score" for n, k in [key]}}))
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--restart-replay"]:
@@ -4271,6 +4617,8 @@ def main(argv=None) -> int:
 
     # full f32 in every product the script compares or times
     torch.backends.cuda.matmul.allow_tf32 = False
+    if argv[:1] == ["--kernel-timings"]:
+        return kernel_timings(torch)
 
     from repro_torch.configs import get as get_arch
     from repro_torch.kernels import build
@@ -4369,7 +4717,6 @@ def main(argv=None) -> int:
         with _phase("phase 11: the LM families at full width ("
                     f"{', '.join(LM_FAMILIES)})"):
             families = phase_lm_families(torch, T, steps, fa_ops, fa_ref, ctx)
-        del ctx
 
         with _phase("phase 12: the sharded retrieval planes (ragdb FULL, "
                     f"{SHARD_DOCS:,} docs a shard)"):
@@ -4381,13 +4728,21 @@ def main(argv=None) -> int:
                     "train_4k, five LM SMOKE configs card vs CPU, recsys "
                     "train_batch FULL, launch/train.py restart-replay)"):
             phase_training(torch, np, fa_ops, tmp)
+
+        with _phase("phase 14: the analysis plane's guards on the main path "
+                    f"({ARCH} FULL, RAGDB_SANITIZERS=1)"):
+            san_launches, san_fa_launches = phase_sanitized_serving(
+                torch, ops, fa_ops, ctx)
+        del ctx
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     _log(f"card: {card}")  # again, near the end, for readers of the tail
 
     _log(f"hsf_score_topk launches on its paths: phase 3 {launches}, "
-         f"phase 10 (A) {mt_launches}, phase 12 {shard_launches}")
+         f"phase 10 (A) {mt_launches}, phase 12 {shard_launches}, phase 14 "
+         f"{san_launches}")
     fa_paths = {"phase3": fa_launches, **{
-        f"phase11_{arch}": f["launches"] for arch, f in families.items()}}
+        f"phase11_{arch}": f["launches"] for arch, f in families.items()},
+        "phase14": san_fa_launches}
     fa_shapes = {name: t for f in families.values()
                  for name, t in f["flash"].items()}
     _log(f"flash_attention launches on its paths: {fa_paths}")
@@ -4397,9 +4752,10 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/hsf_topk.cu",
         "replaces": "src/repro/kernels/hsf_score/hsf_score.py:205",
         # the sum over its paths, each counted from 0 in this run
-        "launches": launches + mt_launches + shard_launches,
+        "launches": launches + mt_launches + shard_launches + san_launches,
         "launches_by_path": {"phase3": launches, "phase10_A": mt_launches,
-                             "phase12": shard_launches},
+                             "phase12": shard_launches,
+                             "phase14": san_launches},
         "max_abs_err": max(max_err, shard_err),
         **timing,
         # phase 12's shard shape: one launch over a 65,536-row shard view

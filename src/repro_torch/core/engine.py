@@ -164,6 +164,8 @@ def _score_topk(doc_vecs, doc_sigs, q_vecs, q_sigs, n_valid,
     if gemm:
         # full f32 on the card: a TF32 product would keep ~3 digits
         torch.backends.cuda.matmul.allow_tf32 = False
+        # analysis: allow[unpinned-reduction] -- opt-in gemm branch
+        #   (scoring_path="gemm"), documented non-bit-stable
         cos = q_vecs.to(torch.float32) @ dv.T
     else:
         cos = torch.stack([hsf.stable_rowdot(dv, q) for q in q_vecs])
@@ -285,10 +287,11 @@ def score_batch_arrays(
                 k=k, alpha=alpha, beta=beta, gemm=scoring_path == "gemm",
             )
         if obs_trace.active() and dev.type == "cuda":
-            # tracing/explain-only sync: without it the asynchronous
-            # launch returns at once and all device time would be
-            # charged to the host_transfer span below.  Never runs when
-            # neither a trace nor an EXPLAIN collector is active.
+            # analysis: allow[host-sync] -- tracing/explain-only sync:
+            #   without it the asynchronous launch returns at once and
+            #   all device time would be charged to the host_transfer
+            #   span below; never runs when neither a trace nor an
+            #   EXPLAIN collector is active
             torch.cuda.current_stream(dev).synchronize()
     with obs_trace.span("host_transfer", k=k):
         return (vals.cpu().numpy(), idx.cpu().numpy(),

@@ -164,6 +164,8 @@ def top_k(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 def numpy_reference(doc_vecs, doc_sigs, query_vec, query_sig, alpha, beta):
     """Pure-numpy oracle for tests (no torch involvement at all)."""
+    # analysis: allow[unpinned-reduction] -- float64 test oracle; extra
+    #   mantissa absorbs reduction-order error, tests allow an eps band
     cos = doc_vecs.astype(np.float64) @ query_vec.astype(np.float64)
     d = doc_sigs.view(np.uint32)
     q = query_sig.view(np.uint32)

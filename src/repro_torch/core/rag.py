@@ -68,6 +68,11 @@ class RAGPipeline:
     # at a time: generate() is not for concurrent callers)
     steps: GenerationSteps | None = field(default=None, init=False,
                                           repr=False)
+    # the serving runtime's capture guard, set by its arm_sanitizers(
+    # rag=...): checked after every generation, so a prompt bucket that
+    # was not warmed (a capture on the hot path) raises on its request
+    retrace_guard: object | None = field(default=None, init=False,
+                                         repr=False)
 
     def __post_init__(self):
         if self.engine is None:
@@ -162,6 +167,8 @@ class RAGPipeline:
             logits, _ = steps.decode(tok, length)
             next_tok = int(torch.argmax(logits[0, 0]))
             decode_s += time.perf_counter() - t1
+        if self.retrace_guard is not None:
+            self.retrace_guard.check("rag.generate")
         return RAGOutput(retrieved=results, token_ids=out,
                          prompt_len=len(prompt), prefill_s=prefill_s,
                          decode_s=decode_s)

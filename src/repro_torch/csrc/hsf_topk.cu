@@ -8,8 +8,11 @@
 //     score = alpha * (q . doc) + beta * all((sig & qsig) == qsig)
 //
 // over the rows id < n_valid, ordered (score desc, id asc).  Slots that
-// cannot fill (k > n_valid) come out (-inf, 2^31 - 1); a real id is
-// never repeated.  The [B, N] score matrix never reaches device memory.
+// cannot fill (k > n_valid, or docs scoring -inf, which are no
+// candidates) come out (-inf, 2^31 - 1); a real id is never repeated.  A NaN score ranks above +inf, whatever its sign, as
+// the TPU kernel's first-match arg-max ranks it; NaNs tie among
+// themselves and break the tie by id.  The [B, N] score matrix never
+// reaches device memory.
 //
 // What bounds it.  At the serving shape (B = 64, N = 65,536, D = 4,096,
 // W = 128) the kernel must read the 1.07 GB doc matrix and its 33.5 MB of
@@ -107,9 +110,12 @@ constexpr int32_t kSentinel = 0x7fffffff;
 static_assert(kLag < kStages, "a stage is signalled before it is reused");
 static_assert(kStageBytes % 1024 == 0, "stages keep the swizzle alignment");
 
-// (av, ai) ranks strictly before (bv, bi): score desc, then id asc.
+// (av, ai) ranks strictly before (bv, bi): score desc, then id asc, with
+// every NaN above +inf and NaNs equal among themselves.
 __device__ __forceinline__ bool better(float av, int32_t ai, float bv,
                                        int32_t bi) {
+  const bool an = av != av, bn = bv != bv;
+  if (an || bn) return an && (!bn || ai < bi);
   return av > bv || (av == bv && ai < bi);
 }
 
@@ -258,7 +264,9 @@ __device__ void merge_tile(const float* row, int base, int nvalid, int tile_no,
     const int local = lane + 32 * c;
     cv[c] = row[local];
     ci[c] = base + local;
-    in[c] = local < nvalid && better(cv[c], ci[c], tv, ti);
+    // a -inf score is no candidate: its slot stays (-inf, sentinel)
+    in[c] = local < nvalid && cv[c] != -INFINITY &&
+            better(cv[c], ci[c], tv, ti);
   }
   if (tile_no == 0) {
     first_tile(cv, ci, in, k, vals, ids, kth_v, kth_i, lane);
@@ -627,7 +635,8 @@ hsf_topk_merge(const float* __restrict__ cand_v,
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const float* cv = cand_v + (size_t)qi * m;
   const int32_t* ci = cand_i + (size_t)qi * m;
-  float last_v = INFINITY;
+  // the last pick starts above every candidate: a NaN of id -1
+  float last_v = __int_as_float(0x7fc00000);
   int32_t last_i = -1;
   int t = 0;
   for (; t < k; ++t) {

@@ -6,8 +6,10 @@
 // (score desc, id asc).  A -inf score is not a candidate: slots that no
 // finite (or +inf) score fills come out (-inf, 2^31 - 1), which is what
 // the TPU kernel gives whenever its sequential carry starts such a slot
-// from its (-inf, sentinel) scratch.  NaN scores are dropped the same way
-// (outside the contract: the TPU kernel ranks them first).
+// from its (-inf, sentinel) scratch.  A NaN ranks above +inf, whatever its
+// sign and payload, as the TPU kernel's first-match arg-max ranks it; NaNs
+// tie among themselves and break the tie by id, and each keeps its own id
+// and its bits.
 //
 // What bounds it.  The function reads each score once and writes 8k
 // bytes.  At N = 65,536 that is 256 KB (0.08 us at 3.35 TB/s), so a call
@@ -18,7 +20,8 @@
 //
 // - The key.  Each score maps to a uint32 that sorts as the float does
 //   (-0.0 first made +0.0; a negative has all bits flipped, a positive its
-//   sign bit set; -inf and NaN get 0, below every candidate).  The key of
+//   sign bit set; -inf gets 0, below every candidate, and every NaN the
+//   largest key, 0xffffffff, above +inf's 0xff800000).  The key of
 //   an entry is (score key << nb) | (2^nb - 1 - id), nb the bits of N - 1:
 //   the low part is the inverted id 0x7fffffff - id without its constant
 //   high bits, so every key is distinct, the k-th largest is unique, and
@@ -138,9 +141,11 @@ struct ClusterSmem {
   unsigned merged[2][kBins];      // whole-cluster passes, double buffered
 };
 
-// Order-preserving key of a score; 0 for a non-candidate (-inf, NaN).
+// Order-preserving key of a score; 0 for a non-candidate (-inf), the
+// largest key for any NaN.
 __device__ __forceinline__ uint32_t score_key(float x) {
-  if (!(x > -INFINITY)) return 0u;
+  if (x != x) return 0xffffffffu;
+  if (x == -INFINITY) return 0u;
   uint32_t u = __float_as_uint(x);
   if (x == 0.0f) u = 0u;  // -0.0 ties with +0.0 and breaks the tie by id
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);

@@ -325,8 +325,8 @@ class IVFIndex:
         if rows.size == 0:
             return self
         sub = _host(row_vecs).astype(np.float32)
-        # incremental reassign routing; the assignment never affects
-        # served scores
+        # analysis: allow[unpinned-reduction] -- incremental reassign
+        #   routing; the assignment never affects served scores
         sims = sub @ self.centroids.T                       # [U, kc]
         new = np.argmax(sims, axis=1).astype(np.int32)
         dots = sims[np.arange(rows.size), new]
@@ -370,7 +370,8 @@ class IVFIndex:
             dv = torch.as_tensor(doc_vecs)
             sub = _host(dv.index_select(0, torch.from_numpy(
                 fill.astype(np.int64)).to(dv.device))).astype(np.float32)
-            # remap routing for the filled rows; routing only, as reassign
+            # analysis: allow[unpinned-reduction] -- remap routing for the
+            #   filled rows; routing only, the same argument as reassign
             carried[fill] = np.argmax(
                 sub @ self.centroids.T, axis=1
             ).astype(np.int32)
@@ -401,8 +402,8 @@ class IVFIndex:
         _t = time.perf_counter() if obs_trace.active() else 0.0
 
         # -- probe plane (host, float64 for the exactness bound) ----------
-        # f64 probe bound, clipped to [-1, 1]; prunes candidates only,
-        # the exact rerank follows
+        # analysis: allow[unpinned-reduction] -- f64 probe bound, clipped
+        #   to [-1, 1]; prunes candidates only, the exact rerank follows
         a = np.clip(
             qv[:b].astype(np.float64) @ self.centroids.T.astype(np.float64),
             -1.0, 1.0,

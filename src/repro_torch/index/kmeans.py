@@ -50,12 +50,17 @@ def _kmeans_fit(x: torch.Tensor, init_rows: torch.Tensor, *,
     n = x.shape[0]
     cent = x.index_select(0, init_rows)                      # [k, D]
     for _ in range(n_iter):
+        # analysis: allow[unpinned-reduction] -- training geometry, not
+        #   served scores: assignments feed routing only, and the exact
+        #   HSF rerank makes results invariant to them
         sims = x @ cent.T                                    # [N, k]
         assign = torch.argmax(sims, dim=1)  # first index among ties
         best = torch.amax(sims, dim=1)                       # [N]
         one_hot = torch.nn.functional.one_hot(
             assign, n_clusters).to(x.dtype)                  # [N, k]
         counts = one_hot.sum(dim=0)                          # [k]
+        # analysis: allow[unpinned-reduction] -- centroid accumulation
+        #   during training; the same routing-only argument as above
         sums = one_hot.T @ x                                 # [k, D]
         mean = sums / torch.clamp(counts, min=1.0)[:, None]
         # empty clusters seize the hardest points, one per cluster in
@@ -68,6 +73,8 @@ def _kmeans_fit(x: torch.Tensor, init_rows: torch.Tensor, *,
         cent = torch.where(empty[:, None], seize, mean)
         norm = torch.linalg.vector_norm(cent, dim=1, keepdim=True)
         cent = cent / torch.clamp(norm, min=1e-12)           # spherical
+    # analysis: allow[unpinned-reduction] -- final training assignment;
+    #   routing-only, results invariant under the exact rerank
     assign = torch.argmax(x @ cent.T, dim=1).to(torch.int32)
     return cent, assign
 

@@ -442,8 +442,8 @@ class ShardedIVFIndex:
         _t = time.perf_counter() if obs_trace.active() else 0.0
 
         # -- global probe plane (host, float64 bound) ---------------------
-        # f64 probe bound, clipped to [-1, 1]; prunes candidates only,
-        # the exact rerank follows
+        # analysis: allow[unpinned-reduction] -- f64 probe bound, clipped
+        #   to [-1, 1]; prunes candidates only, the exact rerank follows
         a = np.clip(
             qv[:b].astype(np.float64) @ base.centroids.T.astype(np.float64),
             -1.0, 1.0,
@@ -631,9 +631,10 @@ class ShardedIVFIndex:
                 o = _shard_topk_core(*sub, qv, qs, kk=kk, alpha=float(alpha),
                                      beta=float(beta))
                 if obs_trace.active() and dev.type == "cuda":
-                    # tracing/explain-only sync: attributes the shard's
-                    # device time to its span; never runs when neither
-                    # a trace nor an EXPLAIN collector is active
+                    # analysis: allow[host-sync] -- tracing/explain-only
+                    #   sync: attributes the shard's device time to its
+                    #   span; never runs when neither a trace nor an
+                    #   EXPLAIN collector is active
                     torch.cuda.current_stream(dev).synchronize()
                 outs.append(o)
         bp = next(iter(q_dev.values()))[0].shape[0]

@@ -4,7 +4,10 @@
 Keeps the JAX package's ``hsf_score_batched`` / ``pad_docs_for_kernel``
 signatures and contract: (vals [B, k'], ids [B, k']), k' = min(k, N),
 ordered (score desc, id asc); rows ``>= n_valid`` score -inf; slots
-that cannot fill carry (-inf, ``ID_SENTINEL``).  ``hsf_score`` keeps
+that cannot fill carry (-inf, ``ID_SENTINEL``).  A NaN score (a doc
+row holding a NaN or an infinity) ranks above +inf whatever its sign,
+NaNs in id order, each with its own id: the JAX kernel's order, the
+plain version's and the kernel's.  ``hsf_score`` keeps
 the JAX package's single-query contract: f32 [N] scores, f32 or bf16
 docs and query summed in f32, n = 0 → an empty vector with no launch.
 

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.topk.ref import nan_first_order
+
 
 def containment_matrix(doc_sigs: torch.Tensor,
                        query_sigs: torch.Tensor) -> torch.Tensor:
@@ -64,18 +66,18 @@ def hsf_score_rows(doc_vecs, doc_sigs, query_vecs, query_sigs,
 
 def hsf_score_topk_ref(doc_vecs, doc_sigs, query_vecs, query_sigs,
                        alpha: float, beta: float, k: int, n_valid=None):
-    """(vals [B, k] f32, ids [B, k] int32) ordered (score desc, id asc);
-    rows ``>= n_valid`` score -inf.  Ids of -inf slots are whatever the
-    sort leaves there — the wrapper maps them to the sentinel.  A
-    query's results do not depend on the other queries of the batch
-    (``hsf_score_rows``)."""
+    """(vals [B, k] f32, ids [B, k] int32) ordered (score desc, id asc),
+    NaNs first in id order; rows ``>= n_valid`` score -inf.  Ids of
+    -inf slots are whatever the sort leaves there — the wrapper maps
+    them to the sentinel.  A query's results do not depend on the other
+    queries of the batch (``hsf_score_rows``)."""
     scores = hsf_score_rows(doc_vecs, doc_sigs, query_vecs, query_sigs,
                             alpha, beta)
     if n_valid is not None:
         ids = torch.arange(scores.shape[1], device=scores.device)
         scores = scores.masked_fill(ids[None, :] >= n_valid, float("-inf"))
-    vals, order = torch.sort(scores, dim=1, descending=True, stable=True)
-    return vals[:, :k], order[:, :k].to(torch.int32)
+    order = nan_first_order(scores, dim=1)[:, :k]
+    return torch.gather(scores, 1, order), order.to(torch.int32)
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,9 @@ int32) of a score vector [N], ordered (score desc, id asc), k ≤
 min(N, 128).  Where the JAX wrapper asserts (k > N, k > 128) this one
 raises ``ValueError``.  A slot holding -inf carries the sentinel id
 2³¹−1, as the JAX kernel gives it whenever the vector fits one of its
-blocks (N ≤ 1,024).  NaN scores are outside the contract: the kernel
-drops them like -inf, the plain version sorts them first, and the JAX
-kernel ranks them first.
+blocks (N ≤ 1,024).  A NaN of either sign ranks above +inf, NaNs in id
+order, each with its own id and bits: the JAX kernel's order, the plain
+version's and the kernel's.
 
 Dispatch is by the tensor's device and nothing else: a CUDA tensor
 launches the kernel (or raises — wrong dtype, device or layout, a

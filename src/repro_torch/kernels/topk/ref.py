@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the top-k kernel (``csrc/topk.cu``).
 
 ``top_k_ref`` is the contract: a stable descending sort of the whole
-vector, then the first k — the (score desc, id asc) order.  Like the
+vector, then the first k — the (score desc, id asc) order, with every
+NaN (of either sign) first, in id order, as the JAX kernel ranks it.
+Like the
 kernel (and the JAX package's kernel, whose carry starts from (-inf,
 sentinel) slots), a slot that holds -inf carries the sentinel id 2³¹−1
 rather than the id of a -inf entry; the JAX package's ``top_k_ref``
@@ -21,24 +23,38 @@ ID_SENTINEL = 2**31 - 1
 DIGIT_BITS = 11  # the kernel's digit: 2,048 histogram bins a pass
 
 
+def nan_first_order(scores: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Indices of a stable descending sort along ``dim`` with every NaN
+    first, tied among themselves (so in index order).  The sort runs on
+    a key whose NaNs are all one NaN: on the card ``torch.sort`` orders
+    NaNs by their bit patterns (a -NaN below -inf, payloads apart)."""
+    key = scores.masked_fill(torch.isnan(scores), float("nan"))
+    return torch.sort(key, dim=dim, descending=True, stable=True).indices
+
+
 def top_k_ref(scores: torch.Tensor, k: int):
-    """(values [k] f32, ids [k] int32) of a [N] score vector."""
-    vals, order = torch.sort(scores.to(torch.float32), descending=True,
-                             stable=True)
-    vals, ids = vals[:k], order[:k].to(torch.int32)
+    """(values [k] f32, ids [k] int32) of a [N] score vector; the values
+    are the scores' own bits (a NaN keeps its sign and payload)."""
+    x = scores.to(torch.float32)
+    order = nan_first_order(x)[:k]
+    vals, ids = x[order], order.to(torch.int32)
     return vals, ids.masked_fill(torch.isneginf(vals), ID_SENTINEL)
 
 
 def score_keys(scores: torch.Tensor) -> torch.Tensor:
     """uint32 keys (held in int64) that sort as the f32 scores do: -0.0
     is first made +0.0, then a negative has all its bits flipped and a
-    positive its sign bit set.  -inf and NaN, never candidates, get 0,
-    below every candidate's key (> 0x007FFFFF)."""
+    positive its sign bit set.  -inf, never a candidate, gets 0, below
+    every candidate's key (> 0x007FFFFF); every NaN, whatever its sign
+    and payload, gets the largest key 0xFFFFFFFF, above +inf's
+    0xFF800000, so NaNs rank first and tie among themselves (the JAX
+    kernel's first-match arg-max order)."""
     x = scores.to(torch.float32).contiguous()
     bits = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     bits = bits.masked_fill(x == 0, 0)
     keys = torch.where(bits >= 2**31, bits ^ 0xFFFFFFFF, bits | 2**31)
-    return keys.masked_fill(~(x > float("-inf")), 0)
+    keys = keys.masked_fill(torch.isneginf(x), 0)
+    return keys.masked_fill(torch.isnan(x), 0xFFFFFFFF)
 
 
 def id_bits(n: int) -> int:

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.analysis import sanitizers
 from repro_torch.configs import shapes as shp
 from repro_torch.core.engine import resolve_device
 from repro_torch.data import pipeline
@@ -151,16 +152,25 @@ class CapturedStep:
 
     On ``cpu`` each call runs ``fn`` eagerly on the static buffers.
     Calls must not overlap (one thread at a time per step).
+
+    Every step registers with the capture guard
+    (``analysis.sanitizers.register_capture``) under ``name`` (default:
+    ``fn``'s name); ``captures`` counts its captures (0 or 1, always 0
+    on the CPU), which the armed guard holds at their baseline.
     """
 
-    def __init__(self, fn, static_inputs: tuple, device=None):
+    def __init__(self, fn, static_inputs: tuple, device=None,
+                 name: str | None = None):
         self.fn = fn
         self.inputs = tuple(static_inputs)
         self.device = resolve_device(device)
+        self.name = name or getattr(fn, "__name__", "step")
         self.graph = None
         self.outputs = None
         self.launches: dict[tuple[str, str], int] = {}
         self.capture_s = 0.0
+        self.captures = 0
+        sanitizers.register_capture(self)
 
     @property
     def captured(self) -> bool:
@@ -188,10 +198,14 @@ class CapturedStep:
                 with torch.cuda.graph(graph,
                                       capture_error_mode="thread_local"):
                     outputs = self.fn(*self.inputs)
+            # analysis: allow[host-sync] -- the end of a capture: set-up
+            #   made once per step, before its first replay and outside
+            #   every timing; a replay never reaches it
             torch.cuda.synchronize()
         counters.add(counters.tally(setup, times=-1))
         self.launches = counters.tally(captured)
         self.graph, self.outputs = graph, outputs
+        self.captures += 1
         self.capture_s = time.perf_counter() - t0
 
     def __call__(self, *inputs):
@@ -358,10 +372,31 @@ class GenerationSteps:
         self.decode = CapturedStep(
             lambda tokens, lengths: decode(model, caches, tokens, lengths),
             (torch.zeros((1, 1), dtype=torch.int64, device=dev),
-             torch.ones((1,), dtype=torch.int32, device=dev)), dev)
+             torch.ones((1,), dtype=torch.int32, device=dev)), dev,
+            name=f"{cfg.name}.decode")
 
     def bucket(self, n: int) -> int:
         return prompt_bucket(n, self.max_context)
+
+    def buckets(self) -> list[int]:
+        """Every prompt bucket a request can take (64 … max_context)."""
+        out, bucket = [], SMALLEST_BUCKET
+        while True:
+            out.append(min(bucket, self.max_context))
+            if bucket >= self.max_context:
+                return out
+            bucket *= 2
+
+    def capture_all(self) -> None:
+        """Capture every prompt bucket's prefill step and the decode step
+        now (a no-op on the CPU): what the serving runtime does before it
+        arms the capture guard.  Each capture runs on the static buffers
+        as they stand and writes the cache, which the next request's
+        prefill overwrites up to its length (positions past a request's
+        length are masked)."""
+        for bucket in self.buckets():
+            self.prefill(bucket).capture()
+        self.decode.capture()
 
     def prefill(self, bucket: int) -> CapturedStep:
         """The step of one bucket: ``step(tokens [1, bucket] int64,
@@ -373,7 +408,8 @@ class GenerationSteps:
             self._prefill[bucket] = CapturedStep(
                 self._prefill_fn,
                 (torch.zeros((1, bucket), dtype=torch.int64, device=dev),
-                 torch.ones((1,), dtype=torch.int32, device=dev)), dev)
+                 torch.ones((1,), dtype=torch.int32, device=dev)), dev,
+                name=f"{self.cfg.name}.prefill[{bucket}]")
         return self._prefill[bucket]
 
     def steps(self) -> list[CapturedStep]:
@@ -477,6 +513,9 @@ def make_recsys_step(arch_id: str, cfg, kind: str, device=None,
                 params, _on(batch["query"], device),
                 _on(batch["candidate_ids"], device), cfg)
             n = scores.shape[0]
+            # analysis: allow[host-sync] -- a host int: the batch's
+            #   n_real_candidates is a Python number, which a captured
+            #   step holds constant (CapturedStep refuses to change it)
             n_real = int(batch.get("n_real_candidates", n))
             if n_real < n:
                 pos = torch.arange(n, device=scores.device)

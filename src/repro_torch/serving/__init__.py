@@ -107,7 +107,8 @@ class ServingRuntime:
         self.cache = (
             ResultCache(result_cache_size) if result_cache_size else None
         )
-        # kept for API parity; a no-op under eager PyTorch (sanitizers.py)
+        # the capture guard: zero CUDA graph captures once armed
+        # (sanitizers.py; silent on the CPU, which captures nothing)
         self.retrace_guard = sanitizers.RetraceGuard()
         # SLO health monitor (obs/health.py): lazily constructed on the
         # first health() call so the window clock starts at first use
@@ -249,12 +250,25 @@ class ServingRuntime:
     # ---- runtime sanitizers ----------------------------------------------
 
     def arm_sanitizers(self, k: int = 5,
-                       tenants: list[str] | None = None) -> None:
+                       tenants: list[str] | None = None, *,
+                       rag=None, max_new_tokens: int = 16) -> None:
         """Warm every query-batch bucket the serving loop can emit
         ({1, 2, 4, .., max_batch} at ``k``) against the current
         snapshot — in multi-tenant mode against every tenant in
-        ``tenants`` (default: the resident set) — then arm the (eager
-        no-op) retrace guard.  Re-call after every ``publish()``."""
+        ``tenants`` (default: the resident set) — then arm the capture
+        guard: after this, any CUDA graph capture raises
+        ``sanitizers.SanitizerError`` on the flush or generation that
+        caused it (when ``RAGDB_SANITIZERS`` is on).
+
+        When the runtime serves generation, pass its ``RAGPipeline`` as
+        ``rag`` with the ``max_new_tokens`` it generates: every prompt
+        bucket of its steps for that horizon (and the decode step) is
+        captured before arming, and the pipeline checks the guard after
+        each generation.  Re-call after every ``publish()`` (which
+        disarms the guard)."""
+        if rag is not None:
+            rag.generation_steps(max_new_tokens).capture_all()
+            rag.retrace_guard = self.retrace_guard
         if self.router is not None:
             names = tenants if tenants is not None \
                 else self.pool.resident_tenants()

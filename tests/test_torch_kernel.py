@@ -132,6 +132,65 @@ def test_n_valid_masks_suffix():
     np.testing.assert_array_equal(mi.numpy(), pi)
 
 
+_NEG_NAN = np.array([0xFFC00000], np.uint32).view(np.float32)[0]
+
+
+@pytest.mark.parametrize("case", ["NaN rows", "signed NaN rows",
+                                  "one NaN element", "±inf elements",
+                                  "NaN beside -inf padding", "all NaN"])
+def test_nan_and_inf_docs_order_as_the_jax_kernel(case):
+    """Poisoned doc rows through the plain version (what a CPU tensor
+    runs) and the JAX kernel in interpret mode: a NaN score ranks above
+    +inf whatever its sign, NaNs in id order, each with its own id (the
+    sentinel is only for -inf); ids equal, scores equal as NaN / ±inf /
+    within the sweep's tolerance."""
+    n, b, k = 300, 4, 12
+    dv, ds, qv, qs = _hsf_corpus(n, 64, 8, b, np.random.default_rng(29))
+    kw = {}
+    nan_ids = []
+    if case == "NaN rows":
+        nan_ids = [3, 77, 150, 299]
+        dv[[150, 3, 299, 77]] = np.nan
+    elif case == "signed NaN rows":
+        nan_ids = [3, 40, 41]
+        dv[40] = _NEG_NAN
+        dv[3] = np.nan
+        dv[41, :32], dv[41, 32:] = _NEG_NAN, np.nan
+    elif case == "one NaN element":
+        nan_ids = [222]
+        dv[222, 17] = np.nan
+    elif case == "±inf elements":
+        # ±inf times a nonzero weight: an infinite score of either sign
+        # (+inf ranks above every finite one, -inf below)
+        dv[[9, 10], 0] = [np.inf, -np.inf]
+        qv[:, 0] = [1.0, -1.0, 2.0, -0.5]
+    elif case == "NaN beside -inf padding":
+        nan_ids = [5]
+        dv[[5, 200]] = np.nan  # 200 lies past n_valid
+        kw = {"n_valid": 8, "block_docs": 64}
+        k = 12  # more than n_valid: -inf slots, sentinel ids
+    elif case == "all NaN":
+        nan_ids = list(range(k))
+        dv[:] = np.nan
+    (pv, pi), (jv, ji) = _both(dv, ds, qv, qs, k=k, alpha=1.0, beta=1.3,
+                               **kw)
+    np.testing.assert_array_equal(pi, ji)
+    np.testing.assert_array_equal(np.isnan(pv), np.isnan(jv))
+    np.testing.assert_allclose(pv, jv, rtol=1e-5, atol=1e-6)
+    for row_v, row_i in zip(pv, pi):
+        assert row_i[:len(nan_ids)].tolist() == nan_ids
+        assert np.isnan(row_v[:len(nan_ids)]).all()
+        assert not np.isnan(row_v[len(nan_ids):]).any()
+    if case == "±inf elements":
+        assert (pi[:, 0] == 9).tolist() == [True, False, True, False]
+        assert np.isposinf(pv[[0, 2], 0]).all()
+        assert (pi[[1, 3], 0] == 10).all() and np.isposinf(pv[[1, 3], 0]).all()
+        assert 10 not in pi[[0, 2]] and 9 not in pi[[1, 3]]
+    if case == "NaN beside -inf padding":
+        assert (pi[:, 8:] == ops.ID_SENTINEL).all()
+        assert np.isneginf(pv[:, 8:]).all()
+
+
 def test_plain_version_orders_ties_by_id():
     scores_src = np.zeros((6, 4), np.float32)
     sigs = np.zeros((6, 2), np.int32)

@@ -189,6 +189,26 @@ def test_generation_steps_reuse_one_cache_and_step_per_bucket(arch):
     assert len(gs.steps()) == 3
 
 
+@pytest.mark.parametrize("max_context", [512, 400, 100, 48])
+def test_generation_steps_list_and_capture_every_prompt_bucket(max_context):
+    """``buckets()`` is every bucket ``prompt_bucket`` gives a prompt of
+    1 … max_context tokens; ``capture_all`` makes each bucket's step and
+    the decode step (capturing nothing on the CPU), and every step is
+    registered with the capture guard under its bucket's name."""
+    from repro_torch.analysis import sanitizers
+
+    _, _, cfg, model = _carried("llama3.2-3b")
+    gs = steps.GenerationSteps(model, cfg, max_context, max_new_tokens=2)
+    want = sorted({steps.prompt_bucket(n, max_context)
+                   for n in range(1, max_context + 1)})
+    assert gs.buckets() == want
+    gs.capture_all()
+    assert sorted(gs._prefill) == want and gs.captures == 0
+    counts = sanitizers.capture_counts()
+    assert {f"{cfg.name}.prefill[{b}]" for b in want} | {
+        f"{cfg.name}.decode"} <= set(counts)
+
+
 # ---------------------------------------------------------------------------
 # cells against the JAX package's cells
 # ---------------------------------------------------------------------------

@@ -248,12 +248,23 @@ def _radix_case(name):
         return np.full(5000, 0.25, np.float32), 33
     if name == "N = 1":
         return np.array([-3.5], np.float32), 1
+    if name == "NaN, ±inf and -NaN":
+        s = rng.normal(size=2500).astype(np.float32)
+        s[[40, 2400, 7]] = [np.nan, np.nan, -np.nan]
+        s[[8, 9]] = [np.inf, -np.inf]
+        s[100:300] = -np.inf
+        return s, 24
+    if name == "NaN past the k-th":
+        s = rng.integers(0, 3, size=3000).astype(np.float32)
+        s[rng.choice(3000, 200, replace=False)] = np.nan
+        return s, 128
     raise KeyError(name)
 
 
 _RADIX_CASES = ["random", "five values", "±0.0 mixed", "+inf present",
                 "fewer finite than k", "fewer finite than k, one block",
-                "ragged N", "k = N", "all equal", "N = 1"]
+                "ragged N", "k = N", "all equal", "N = 1",
+                "NaN, ±inf and -NaN", "NaN past the k-th"]
 
 
 def _bits(v):
@@ -275,7 +286,8 @@ def test_radix_select_is_bit_equal_to_the_stable_sort(name, groups):
 
 @pytest.mark.parametrize("name", [
     "random", "five values", "±0.0 mixed", "+inf present",
-    "fewer finite than k, one block", "k = N", "all equal", "N = 1"])
+    "fewer finite than k, one block", "k = N", "all equal", "N = 1",
+    "NaN, ±inf and -NaN", "NaN past the k-th"])
 def test_radix_select_matches_the_jax_kernel(name):
     """Against the JAX kernel in interpret mode wherever it is consistent:
     it repeats ids when fewer entries than k are finite across more than
@@ -292,13 +304,76 @@ def test_radix_select_matches_the_jax_kernel(name):
 
 def test_score_keys_sort_as_the_floats():
     f = np.array([-np.inf, -3.4e38, -1.0, -1e-45, -0.0, 0.0, 1e-45, 1.0,
-                  3.4e38, np.inf, np.nan], np.float32)
+                  3.4e38, np.inf, np.nan, _NEG_NAN, _PAYLOAD_NAN], np.float32)
     keys = score_keys(torch.from_numpy(f)).tolist()
-    assert keys[0] == 0 and keys[-1] == 0  # -inf and NaN: no candidate
+    assert keys[0] == 0  # -inf: no candidate
+    # every NaN, whatever its sign and payload: the largest key, above
+    # +inf's, so NaNs rank first and tie among themselves
+    assert keys[-3:] == [0xFFFFFFFF] * 3 and keys[9] == 0xFF800000
     assert keys[4] == keys[5] == 2**31  # -0.0 and +0.0 tie
-    real = keys[1:4] + keys[5:10]
+    real = keys[1:4] + keys[5:11]
     assert real == sorted(real) and len(set(real)) == len(real)
     assert min(real) > 0x007FFFFF and max(real) < 2**32
+
+
+# the JAX kernel's NaN order (its first-match arg-max, found on the CPU in
+# interpret mode): every NaN above +inf, whatever its sign or payload;
+# NaNs tie and break the tie by id; each keeps its id and its bits
+_NEG_NAN = np.array([0xFFC00000], np.uint32).view(np.float32)[0]
+_PAYLOAD_NAN = np.array([0x7FC00123], np.uint32).view(np.float32)[0]
+_NAN_CASES = ["NaN and ±inf", "several NaNs, one block", "NaN beside -inf",
+              "all NaN", "NaN past k", "NaN at the last id"]
+
+
+def _nan_case(name):
+    rng = np.random.default_rng(11)
+    if name == "NaN and ±inf":
+        s = rng.normal(size=2048).astype(np.float32)
+        s[[900, 1500]] = np.nan
+        s[5], s[300] = _NEG_NAN, _PAYLOAD_NAN
+        s[[77, 1999]] = np.inf
+        s[[12, 13]] = -np.inf
+        return s, 9, [5, 300, 900, 1500, 77, 1999]
+    if name == "several NaNs, one block":
+        s = rng.normal(size=1000).astype(np.float32)
+        s[[999, 3, 500, 4]] = [np.nan, _NEG_NAN, np.nan, _PAYLOAD_NAN]
+        return s, 6, [3, 4, 500, 999]
+    if name == "NaN beside -inf":
+        s = np.full(1024, -np.inf, np.float32)
+        s[[3, 7]] = [np.nan, _NEG_NAN]
+        s[10], s[600] = 1.0, np.inf
+        return s, 6, [3, 7, 600, 10]
+    if name == "all NaN":
+        return np.full(3000, np.nan, np.float32), 16, list(range(16))
+    if name == "NaN past k":
+        s = rng.normal(size=4097).astype(np.float32)
+        s[rng.choice(4097, 40, replace=False)] = np.nan
+        ids = sorted(np.flatnonzero(np.isnan(s)).tolist())[:32]
+        return s, 32, ids
+    if name == "NaN at the last id":
+        s = rng.normal(size=1024).astype(np.float32)
+        s[1023] = _NEG_NAN
+        return s, 4, [1023]
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", _NAN_CASES)
+def test_nan_order_matches_the_jax_kernel(name):
+    """The plain top-k (what a CPU tensor runs) and the kernel's radix
+    select against the JAX kernel in interpret mode on NaN, ±inf and
+    signed-NaN scores: ids and value bits equal, and the NaN order
+    written out."""
+    s, k, first = _nan_case(name)
+    jv, ji = ref_topk_ops.top_k(jnp.asarray(s), k, interpret=True)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    assert ji[:len(first)].tolist() == first
+    pv, pi = tk_ops.top_k(torch.from_numpy(s), k)
+    np.testing.assert_array_equal(pi.numpy(), ji)
+    np.testing.assert_array_equal(_bits(pv), _bits(jv))
+    for groups in (None, 128):
+        v, i, _ = radix_select(torch.from_numpy(s), k, groups=groups)
+        np.testing.assert_array_equal(i.numpy(), ji)
+        np.testing.assert_array_equal(_bits(v), _bits(jv))
 
 
 def test_radix_select_reaches_the_id_bits_only_on_ties():
