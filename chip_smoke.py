@@ -200,6 +200,32 @@ Phases (any failure raises and the script exits non-zero):
    ``CUBLAS_WORKSPACE_CONFIG`` set: 40 steps with a checkpoint every 20,
    a restart in the same process to step 60, every loss bit-equal to an
    uninterrupted run, save and restore seconds.
+14. The analysis plane's guards on the main path (``RAGDB_SANITIZERS=1``:
+   no trip and no capture after arming at flush sizes 1-16, the
+   unwarmed-step and finite-score trips, the analyzer as a subprocess).
+15. The GNN (no kernel of the port is on its path: MACE's message
+   passing is ``index_add_``, as the reference's is
+   ``jax.ops.segment_sum``): ``launch/dryrun.py`` counts the cells whose
+   fit (d) holds on the meta device, in a background subprocess, while
+   the card runs (a) mace FULL on its four cells, full_graph_sm,
+   minibatch_lg (1,024 seeds sampled (15, 10) from a base graph of
+   169,984 nodes) and molecule uncut and ogb_products at the smallest
+   ``graph_cut`` the dry run says fits the card, 3 train steps each:
+   finite losses, the params' bits kept at lr 0 and moving in every leaf
+   after, ms a step, nodes/s, edges/s, peak memory, a profiled step's
+   idle share, the allocated bytes back at the phase's baseline after
+   each cell; (b) one step and its gradients on the card against the
+   CPU from the CPU's params, state and batch (SMOKE on the three kinds,
+   FULL on full_graph_sm); (c) ``energy_and_forces`` at FULL on the
+   molecule graph: the energy invariant and the forces co-rotating under
+   a rotation plus a translation, card = CPU; (d) ``python -m
+   repro_torch.launch.dryrun --arch mace --arch dlrm-mlperf --mesh
+   single``'s exit 0 over those eight cells, each cell's argument + temp
+   bytes and fit verdict against the card's memory, ogb_products uncut
+   not fitting and its cut fitting, dlrm-mlperf's cells (its 96.1 GB
+   table) not fitting.  The count of every cell runs on the CPU
+   (``tests/test_torch_dryrun_cells.py``): it takes minutes of host time
+   the script's limit has no room for.
 
 The second line from the end is a JSON ``kernels`` record; the last is
 ``{"ok": true, "device": {...}}``.  ``--kernel-timings`` runs phase 1's
@@ -4577,6 +4603,318 @@ def phase_sanitized_serving(torch, ops, fa_ops, ctx):
     return launches["launches"], fa["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the GNN (mace) on the card
+# ---------------------------------------------------------------------------
+
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "molecule", "ogb_products")
+GNN_STEPS = 3             # train steps a cell: lr 0, then two that move
+# (b) card against CPU: one step on each side from the CPU's params, state
+# and batch after GNN_WARM_STEPS steps on the CPU (Adam's moments carried,
+# so an element whose gradient is rounding noise is not moved a whole
+# learning rate), held to tests/test_torch_gnn.py's train-step bounds:
+# the loss within rtol 1e-5, each gradient leaf within GNN_GRAD_TOL of its
+# largest magnitude, the parameters within rtol 1e-5, atol 1e-6 (f32 with
+# TF32 off; the card's index_add_ sums in atomic order)
+GNN_WARM_STEPS = 2
+GNN_LOSS_RTOL = 1e-5
+GNN_GRAD_TOL = 1e-4
+GNN_PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
+GNN_CARD_VS_CPU = (("full_graph_sm", True), ("minibatch_lg", True),
+                   ("molecule", True), ("full_graph_sm", False))
+# (c) energy and forces at FULL on the molecule graph: invariance under a
+# rotation plus a translation with the reference's tolerances
+# (tests/test_models_gnn_recsys.py: energy rtol = atol = 2e-4, forces rtol
+# = atol = 1e-3), and the card against the CPU with tests/test_torch_gnn.py's
+# (energy 1e-5, forces 1e-4)
+E3_ENERGY_TOL, E3_FORCE_TOL = 2e-4, 1e-3
+GNN_ENERGY_TOL, GNN_FORCE_TOL = 1e-5, 1e-4
+# (d) the dry run's cells: the GNN's (ogb_products uncut must not fit)
+# and dlrm-mlperf's (its table alone is past the card)
+GNN_DRYRUN_ARCHS = ("mace", "dlrm-mlperf")
+# its worker processes: 4 collected it 25.8 s after the phase's start on
+# the H100 host, 2 in 30.3 s, 8 in 42.3 s (workers crowding the phase's
+# own CPU steps)
+GNN_DRYRUN_JOBS = 4
+GNN_DRYRUN_TIMEOUT = 300
+
+
+def _gnn_cfg(smoke: bool, shape: str):
+    """The cell's config: mace FULL or SMOKE at the shape's d_feat."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.configs import shapes
+
+    arch = get_arch("mace")
+    cfg = arch.smoke_config if smoke else arch.config
+    return replace(cfg, d_feat=shapes.GNN_SHAPES[shape].meta["d_feat"])
+
+
+def _gnn_train_cell(torch, steps, tree_lib, shape, cut, baseline):
+    """(a) one mace FULL cell on the card: GNN_STEPS steps, timed, the
+    params' words moving in every leaf once the lr is above 0, a profiled
+    step's idle share, the allocated bytes back at ``baseline``."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = steps.build_cell("mace", shape, device="cuda",
+                            graph_cut=cut if shape == "ogb_products" else None)
+    params, opt = cell.args[:2]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    m = cell.meta
+    times, losses = [], []
+    for i in range(GNN_STEPS):
+        before = [_word_sum(torch, t) for t in tree_lib.leaves(params)]
+        lr = float(steps.warmup_cosine(opt["step"], 3e-4, steps.WARMUP_STEPS,
+                                       steps.TOTAL_STEPS))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = float(cell.fn(*cell.args)[2])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        after = [_word_sum(torch, t) for t in tree_lib.leaves(params)]
+        changed = sum(a != b for a, b in zip(before, after))
+        assert math.isfinite(loss), (shape, i, loss)
+        # the reference's schedule starts at lr 0: the params keep their
+        # bits; after it every leaf moves
+        want = 0 if lr == 0.0 else len(before)
+        assert changed == want, (shape, i, lr, changed, len(before))
+        losses.append(loss)
+    step_s = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _log(f"  (a) mace FULL {shape} ({m['kind']}): {m['n_nodes']:,} nodes, "
+         f"{m['n_edges']:,} edges in {m['pad_nodes']:,} / "
+         f"{m['pad_edges']:,} slots, d_feat {params['embed'].shape[0]}"
+         + (f" (a base graph of {m['base_nodes']:,} nodes, "
+            f"{m['base_edges']:,} edges; {m['sampled_nodes']:,} nodes, "
+            f"{m['sampled_edges']:,} edges sampled)"
+            if "base_nodes" in m else "")
+         + f"; reduced: {m['reduced']}; built in {build_s:.1f} s")
+    _log(f"    losses {[round(x, 5) for x in losses]} (finite; step 0 at lr "
+         f"0 left every param's bits, steps 1-{GNN_STEPS - 1} moved every "
+         f"leaf); {step_s * 1e3:.2f} ms a step (median of steps "
+         f"1-{GNN_STEPS - 1}; step 0 {times[0] * 1e3:.2f} ms), "
+         f"{m['n_nodes'] / step_s:,.0f} nodes/s, "
+         f"{m['n_edges'] / step_s:,.0f} edges/s, peak {peak:.2f} GB "
+         "allocated")
+    idle = _profile(torch, lambda: cell.fn(*cell.args), step_s * 1e3,
+                    f"a mace {shape} train step", mark="index",
+                    mark_name="gathers and index_add_")
+    del cell, params, opt
+    now = _allocated(torch)
+    assert now == baseline, (shape, now, baseline)
+    return {"step_ms": step_s * 1e3, "nodes_per_s": m["n_nodes"] / step_s,
+            "edges_per_s": m["n_edges"] / step_s, "peak_gb": peak,
+            "idle": idle, "reduced": m["reduced"]}
+
+
+def _gnn_grads(torch, steps, tree_lib, cfg, kind, params, batch):
+    """The loss and its gradient leaves (zeros where the loss does not
+    read a leaf) at ``params``."""
+    live = tree_lib.map_(lambda p: p.detach().clone().requires_grad_(),
+                         params)
+    loss = steps.gnn_loss(live, batch, cfg, kind)
+    loss.backward()
+    return loss.item(), [torch.zeros_like(p) if p.grad is None else p.grad
+                         for p in tree_lib.leaves(live)]
+
+
+def _gnn_card_vs_cpu(torch, steps, tree_lib, shape, smoke):
+    """(b) one train step and its gradients on the card against the CPU,
+    from the CPU's params, state and batch."""
+    from repro_torch.configs import shapes
+
+    t0 = time.perf_counter()
+    spec = shapes.GNN_SHAPES[shape]
+    cfg = _gnn_cfg(smoke, shape)
+    cpu = steps.build_cell("mace", shape, smoke=smoke, device="cpu")
+    for _ in range(GNN_WARM_STEPS):
+        cpu.fn(*cpu.args)
+    card = tree_lib.map_(lambda t: t.cuda(), list(cpu.args))
+    batches = [{**args[2], "n_graphs_static": spec.meta["n_graphs"]}
+               for args in (cpu.args, card)]
+    (l_cpu, g_cpu), (l_card, g_card) = (
+        _gnn_grads(torch, steps, tree_lib, cfg, spec.kind, args[0], b)
+        for args, b in zip((cpu.args, card), batches))
+    assert abs(l_card - l_cpu) <= GNN_LOSS_RTOL * abs(l_cpu), (l_card, l_cpu)
+    worst_g = 0.0
+    for a, b in zip(g_cpu, g_card):
+        scale = float(a.abs().max())
+        err = float((b.cpu() - a).abs().max())
+        assert err <= GNN_GRAD_TOL * scale, (shape, smoke, err, scale)
+        worst_g = max(worst_g, err / scale if scale else 0.0)
+    _, _, loss_cpu = cpu.fn(*cpu.args)
+    _, _, loss_card = cpu.fn(*card)
+    loss_cpu, loss_card = float(loss_cpu), float(loss_card)
+    assert abs(loss_card - loss_cpu) <= GNN_LOSS_RTOL * abs(loss_cpu)
+    worst_p = 0.0
+    for a, b in zip(tree_lib.leaves(cpu.args[0]), tree_lib.leaves(card[0])):
+        b = b.cpu()
+        assert torch.allclose(b, a, **GNN_PARAM_TOL), (shape, smoke)
+        worst_p = max(worst_p, float((b - a).abs().max()))
+    _log(f"  (b) mace {'SMOKE' if smoke else 'FULL'} {shape}: card vs CPU "
+         f"after {GNN_WARM_STEPS} CPU steps: loss {l_card:.6f} vs "
+         f"{l_cpu:.6f}, gradients within {worst_g:.1e} of each leaf's "
+         f"largest (bound {GNN_GRAD_TOL:.0e}); one step: loss "
+         f"{loss_card:.6f} vs {loss_cpu:.6f}, params within {worst_p:.1e} "
+         f"(rtol 1e-5, atol 1e-6); {time.perf_counter() - t0:.1f} s")
+    del card
+
+
+def _gnn_forces(torch, np, steps, tree_lib):
+    """(c) ``energy_and_forces`` at FULL on the molecule graph (128
+    graphs): invariance and co-rotation on the card, card = CPU."""
+    from repro_torch.models.gnn import mace
+
+    cfg = _gnn_cfg(False, "molecule")
+    cpu = steps.build_cell("mace", "molecule", device="cpu")
+    params, _, batch = cpu.args
+    rng = np.random.default_rng(11)
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q *= np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    rot = torch.from_numpy(q.astype(np.float32))
+    shift = torch.from_numpy(rng.normal(size=(1, 3)).astype(np.float32))
+
+    def run(p, b, pos):
+        return mace.energy_and_forces(
+            p, b["node_feats"], pos, b["senders"], b["receivers"], cfg,
+            edge_mask=b["edge_mask"], graph_ids=b["graph_ids"],
+            n_graphs=128)
+
+    cp = tree_lib.map_(lambda t: t.cuda(), params)
+    cb = {k: v.cuda() for k, v in batch.items()}
+    e0, f0 = run(cp, cb, cb["positions"])
+    e1, f1 = run(cp, cb, cb["positions"] @ rot.cuda().T + shift.cuda())
+    e0, e1 = float(e0), float(e1)
+    assert abs(e1 - e0) <= E3_ENERGY_TOL * (1 + abs(e0)), (e0, e1)
+    want = f0 @ rot.cuda().T
+    assert torch.allclose(f1, want, rtol=E3_FORCE_TOL, atol=E3_FORCE_TOL)
+    e_cpu, f_cpu = run(params, batch, batch["positions"])
+    e_cpu = float(e_cpu)
+    assert abs(e0 - e_cpu) <= GNN_ENERGY_TOL * (1 + abs(e_cpu)), (e0, e_cpu)
+    assert torch.allclose(f0.cpu(), f_cpu, rtol=GNN_FORCE_TOL,
+                          atol=GNN_FORCE_TOL)
+    _log(f"  (c) mace FULL energy_and_forces on molecule (128 graphs, "
+         f"{int(batch['edge_mask'].sum()):,} edges): E {e0:.6f}, under a "
+         f"rotation + translation {e1:.6f} (|ΔE| {abs(e1 - e0):.2e}), forces "
+         f"co-rotate within {float((f1 - want).abs().max()):.2e} (largest "
+         f"|F| {float(f0.abs().max()):.3f}); CPU E {e_cpu:.6f}, forces within "
+         f"{float((f0.cpu() - f_cpu).abs().max()):.2e}")
+    del cp, cb, f0, f1, want
+
+
+class _DryRun:
+    """``python -m repro_torch.launch.dryrun --arch mace --arch
+    dlrm-mlperf --mesh single --out DIR`` in the background, started at
+    phase 15's start so that its counting overlaps the card's work.  Its
+    process group (its workers too) is killed and its directory removed
+    at exit if it is still there."""
+
+    def __init__(self):
+        import atexit
+        import os
+
+        self.dir = tempfile.TemporaryDirectory()
+        self.out = self.dir.name
+        self.t0 = time.perf_counter()
+        archs = [a for arch in GNN_DRYRUN_ARCHS for a in ("--arch", arch)]
+        # a session of its own, so that its workers die with it
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *archs,
+             "--mesh", "single", "--out", self.out, "--jobs",
+             str(GNN_DRYRUN_JOBS)], cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(SRC)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+        atexit.register(self.stop)
+
+    def stop(self) -> None:
+        import os
+        import signal
+
+        if self.proc.returncode is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                self.proc.communicate(timeout=30)
+        self.dir.cleanup()
+
+
+def _gnn_dryrun(dry: _DryRun, cut: int, cut_rec: dict):
+    """(d) the dry run's exit and its records: every cell of
+    ``GNN_DRYRUN_ARCHS`` counted, the fit verdicts printed and held."""
+    from repro_torch import configs
+
+    proc = dry.proc
+    try:
+        stdout, stderr = proc.communicate(timeout=GNN_DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        dry.stop()
+        raise
+    assert proc.returncode == 0, (proc.returncode, stdout[-3000:],
+                                  stderr[-3000:])
+    recs = {}
+    for path in Path(dry.out).glob("*.json"):
+        rec = json.loads(path.read_text())
+        recs[(rec["arch"], rec["shape"])] = rec
+    assert set(recs) == {c for c in configs.cells()
+                         if c[0] in GNN_DRYRUN_ARCHS}, sorted(recs)
+    first = next(iter(recs.values()))
+    _log(f"  (d) python -m repro_torch.launch.dryrun "
+         f"{' '.join('--arch ' + a for a in GNN_DRYRUN_ARCHS)} --mesh "
+         f"single: exit 0, {len(recs)} cells counted on meta, collected "
+         f"{time.perf_counter() - dry.t0:.1f} s after its start (card: "
+         f"{first['card']}, {first['card_bytes'] / 1e9:.2f} GB); argument + "
+         "temp GB, fits one card:")
+    for (arch, shape), rec in sorted(recs.items()):
+        mem = rec["memory"]
+        _log(f"    {arch:22s} {shape:15s} "
+             f"{(mem['argument_bytes'] + mem['temp_bytes']) / 1e9:10.2f} "
+             f"{rec['fits_one_card']}")
+    assert not recs[("mace", "ogb_products")]["fits_one_card"]
+    assert cut_rec["fits_one_card"], cut_rec["memory"]
+    mlperf = [s for a, s in recs if a == "dlrm-mlperf"]
+    assert mlperf and not any(recs[("dlrm-mlperf", s)]["fits_one_card"]
+                              for s in mlperf)
+    mem = cut_rec["memory"]
+    _log(f"    ogb_products uncut does not fit; at graph_cut {cut} "
+         f"({cut_rec['reduced']}) "
+         f"{(mem['argument_bytes'] + mem['temp_bytes']) / 1e9:.2f} GB fits; "
+         f"dlrm-mlperf's {len(mlperf)} cells (its 96.1 GB table) do not fit")
+    return recs
+
+
+def phase_gnn(torch, np):
+    """Phase 15: mace on the card, the dry run counting meanwhile and
+    collected last."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps
+    from repro_torch.optim import tree as tree_lib
+
+    dry = _DryRun()
+    try:
+        cut, rec = dryrun.smallest_fitting_cut("mace", "ogb_products")
+        mem = rec["memory"]
+        _log(f"  the dry run's smallest graph_cut of ogb_products that fits "
+             f"one card: {cut} (argument + temp "
+             f"{(mem['argument_bytes'] + mem['temp_bytes']) / 1e9:.2f} GB of "
+             f"{rec['card_bytes'] / 1e9:.2f})")
+        baseline = _allocated(torch)
+        cells = {shape: _gnn_train_cell(torch, steps, tree_lib, shape, cut,
+                                        baseline) for shape in GNN_SHAPES}
+        for shape, smoke in GNN_CARD_VS_CPU:
+            _gnn_card_vs_cpu(torch, steps, tree_lib, shape, smoke)
+        _gnn_forces(torch, np, steps, tree_lib)
+        assert _allocated(torch) == baseline
+        _gnn_dryrun(dry, cut, rec)
+    finally:
+        dry.stop()
+    return cut, cells
+
+
 def kernel_timings(torch) -> int:
     """``python3 chip_smoke.py --kernel-timings``: phase 1's build and
     phase 4's timings alone, as one JSON line (kernel ms of each shape).
@@ -4734,6 +5072,10 @@ def main(argv=None) -> int:
             san_launches, san_fa_launches = phase_sanitized_serving(
                 torch, ops, fa_ops, ctx)
         del ctx
+        torch.cuda.empty_cache()
+        with _phase("phase 15: the GNN (mace FULL, four cells; card vs CPU; "
+                    "forces; the dry run)"):
+            phase_gnn(torch, np)
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     _log(f"card: {card}")  # again, near the end, for readers of the tail
 

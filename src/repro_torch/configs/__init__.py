@@ -1,13 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Lists every architecture the JAX package's registry lists.  Ported: the
-five LM archs (``llama3.2-3b``, ``gemma2-9b``, ``gemma3-27b``, the MoE
-``qwen3-moe-30b-a3b`` and the MLA + MoE ``deepseek-v2-lite-16b``), the
-four recsys archs (``dlrm-rm2``, ``dlrm-mlperf``, ``deepfm``,
-``autoint``) and the retrieval config ``ragdb``; ``get`` raises
-``NotImplementedError`` for ``mace``, naming the ROADMAP item that
-brings it.  ``cells()`` lists every (arch, shape) cell, as the JAX
-package's does.
+Lists every architecture the JAX package's registry lists, each with
+the port's own config module: the five LM archs (``llama3.2-3b``,
+``gemma2-9b``, ``gemma3-27b``, the MoE ``qwen3-moe-30b-a3b`` and the
+MLA + MoE ``deepseek-v2-lite-16b``), the GNN ``mace``, the four recsys
+archs (``dlrm-rm2``, ``dlrm-mlperf``, ``deepfm``, ``autoint``) and the
+retrieval config ``ragdb``.  ``cells()`` lists every (arch, shape) cell,
+as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -19,8 +18,7 @@ from dataclasses import dataclass
 class ArchSpec:
     arch_id: str
     family: str  # lm | gnn | recsys | ragdb
-    module: str | None  # None until the arch is ported
-    roadmap: str = ""   # the ROADMAP item that ports it
+    module: str
 
     @property
     def config(self):
@@ -30,8 +28,6 @@ class ArchSpec:
     def smoke_config(self):
         return importlib.import_module(self.module).SMOKE
 
-
-_GNN = "ROADMAP Queue 1 item 11 (GNN: models/gnn/{mace,sampler}.py)"
 
 ARCHS: dict[str, ArchSpec] = {
     "gemma3-27b": ArchSpec("gemma3-27b", "lm",
@@ -44,7 +40,7 @@ ARCHS: dict[str, ArchSpec] = {
     "deepseek-v2-lite-16b": ArchSpec(
         "deepseek-v2-lite-16b", "lm",
         "repro_torch.configs.deepseek_v2_lite_16b"),
-    "mace": ArchSpec("mace", "gnn", None, _GNN),
+    "mace": ArchSpec("mace", "gnn", "repro_torch.configs.mace"),
     "dlrm-rm2": ArchSpec("dlrm-rm2", "recsys",
                          "repro_torch.configs.dlrm_rm2"),
     "deepfm": ArchSpec("deepfm", "recsys", "repro_torch.configs.deepfm"),
@@ -60,12 +56,7 @@ def get(arch_id: str) -> ArchSpec:
         raise KeyError(
             f"unknown arch {arch_id!r}; available: {sorted(ARCHS)}"
         )
-    spec = ARCHS[arch_id]
-    if spec.module is None:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to PyTorch yet; it comes "
-            f"with {spec.roadmap}")
-    return spec
+    return ARCHS[arch_id]
 
 
 def cells() -> list[tuple[str, str]]:

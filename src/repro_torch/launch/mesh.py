@@ -16,8 +16,9 @@ through ``shard_map``.  The port keeps one process and no
   with the same per-shard arithmetic).  ``dp_axes``/``dp_size`` read it
   as the reference's do.
 
-``make_production_mesh`` (the reference's 256-chip pod mesh) serves its
-dry run, which comes with ``launch/dryrun.py``; it raises.
+``make_production_mesh`` is the reference's pod mesh, 16 × 16 (or 2 ×
+16 × 16) positions of logical ``meta`` devices: the mesh that
+``launch/dryrun.py`` names.  Nothing runs on it.
 """
 from __future__ import annotations
 
@@ -84,15 +85,16 @@ class HostMesh:
 
 
 def make_host_mesh(model_parallel: int = 1, device=None) -> HostMesh:
-    """The ("data", "model") mesh over the CUDA devices (``device`` on
-    the CPU, or when given): data = cards // model_parallel when the
-    cards divide evenly, else one data replica with ``model_parallel``
-    logical model shards of ``device``."""
+    """The ("data", "model") mesh over the CUDA devices (``device``, cuda
+    unless the CPU is asked for; no device and no card raises): data =
+    cards // model_parallel when the cards divide evenly, else one data
+    replica with ``model_parallel`` logical model shards of ``device``."""
+    # core.engine imports this module
+    from repro_torch.core.engine import resolve_device
+
     if model_parallel < 1:
         raise ValueError(f"model_parallel must be >= 1, got {model_parallel}")
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device)
     n = torch.cuda.device_count() if device.type == "cuda" else 1
     if n >= model_parallel and n % model_parallel == 0 and n > 1:
         devices = tuple(torch.device("cuda", i) for i in range(n))
@@ -102,10 +104,20 @@ def make_host_mesh(model_parallel: int = 1, device=None) -> HostMesh:
                     (device,) * model_parallel)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError(
-        "the production mesh (16 x 16 chips a pod) serves the dry run: "
-        "ROADMAP Queue 1 item 15, after launch/dryrun.py (item 14)")
+def make_production_mesh(*, multi_pod: bool = False) -> HostMesh:
+    """16 × 16 = 256 chips a pod; 2 × 16 × 16 = 512 across 2 pods: the
+    reference's axes and shape, one logical ``meta`` device a position."""
+    shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+             else {"data": 16, "model": 16})
+    n = 1
+    for size in shape.values():
+        n *= size
+    return HostMesh(shape, (torch.device("meta"),) * n)
+
+
+def mesh_name(mesh: HostMesh) -> str:
+    """``"16x16"``, ``"2x16x16"``: the reference dry run's mesh names."""
+    return "x".join(str(v) for v in mesh.shape.values())
 
 
 def dp_axes(mesh: HostMesh) -> tuple[str, ...]:

@@ -38,16 +38,23 @@ item 16).
   ``fn`` is the captured step and its ``args`` the static tensors; a
   train cell's ``fn`` is the eager train step and its ``args`` the
   model (or params), the optimizer state and the batch, updated in
-  place by every call.  LM train, prefill and decode (all five LM
-  archs: GQA or MLA caches, dense or MoE layers), recsys train, serve
-  and retrieval, and the RAGdb retrieval cells (``ragdb_retrieve``:
-  ``build_sharded_retrieve`` over a shard mesh) are ported; the GNN
-  kinds raise, naming the ROADMAP item that brings them.
+  place by every call.  Every cell of the JAX package is built: LM
+  train, prefill and decode (all five LM archs: GQA or MLA caches, dense
+  or MoE layers), the three GNN train kinds (``build_gnn_cell``), recsys
+  train, serve and retrieval, and the RAGdb retrieval cells
+  (``ragdb_retrieve``: ``build_sharded_retrieve`` over a shard mesh).
+  On ``device="meta"`` a cell holds shapes only, its weights drawn from
+  a CPU generator: what ``launch/dryrun.py`` counts.
+- ``make_gnn_train_step(cfg, kind)``: MACE's train step, the
+  reference's loss of each GNN kind (``gnn_loss``: node cross-entropy
+  over ``node_mask``, and ``seed_mask`` for the sampled kind; the mean
+  squared energy error for the batched kind), the ``warmup_cosine``
+  learning rate, then AdamW, in place.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -59,7 +66,10 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.data import pipeline
 from repro_torch.kernels import counters
 from repro_torch.kernels.topk import ops as topk_ops
+from repro_torch.kernels.topk import ref as topk_ref
 from repro_torch.models import transformer as T
+from repro_torch.models.gnn import mace as mace_mod
+from repro_torch.models.gnn import sampler as sampler_mod
 from repro_torch.models.recsys import autoint as autoint_mod
 from repro_torch.models.recsys import base as rec_base
 from repro_torch.models.recsys import deepfm as deepfm_mod
@@ -86,11 +96,10 @@ SMALLEST_BUCKET = 64
 # the reference's schedule inside its train steps
 WARMUP_STEPS, TOTAL_STEPS = 100, 10000
 
-_NOT_PORTED = {
-    "gnn_train": "the GNN cells come with ROADMAP Queue 1 item 11",
-    "gnn_train_sampled": "the GNN cells come with ROADMAP Queue 1 item 11",
-    "gnn_train_batched": "the GNN cells come with ROADMAP Queue 1 item 11",
-}
+# minibatch_lg's base graph: as many nodes as the cell has slots, at
+# ogb_products' average degree (61,859,140 / 2,449,029 = 25.3), so that
+# the fanouts (15, 10) are nearly always filled
+MINIBATCH_BASE_DEGREE = 25
 # the JAX package lowers the ragdb cells on its 16 × 16 production mesh
 REFERENCE_RAGDB_SHARDS = 256
 
@@ -98,6 +107,22 @@ REFERENCE_RAGDB_SHARDS = 256
 # ==========================================================================
 # capture and replay
 # ==========================================================================
+
+def cell_device(device) -> torch.device:
+    """``resolve_device``'s rule (cuda unless the CPU is asked for), and
+    ``meta``: a cell there holds shapes and no storage, and its step
+    runs eagerly (what ``launch/dryrun.py`` counts)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+def _generator(device: torch.device, seed: int) -> torch.Generator:
+    """A generator seeded with ``seed`` on ``device``; a CPU one for
+    ``meta``, which has no generator (meta tensors draw nothing)."""
+    return torch.Generator("cpu" if device.type == "meta" else device
+                           ).manual_seed(seed)
+
 
 def _copy_into(static, new) -> None:
     """Copy ``new`` into the static buffers ``static`` (the same nesting
@@ -163,7 +188,7 @@ class CapturedStep:
                  name: str | None = None):
         self.fn = fn
         self.inputs = tuple(static_inputs)
-        self.device = resolve_device(device)
+        self.device = cell_device(device)
         self.name = name or getattr(fn, "__name__", "step")
         self.graph = None
         self.outputs = None
@@ -425,6 +450,70 @@ class GenerationSteps:
 
 
 # ==========================================================================
+# GNN steps
+# ==========================================================================
+
+GNN_KINDS = ("gnn_train", "gnn_train_sampled", "gnn_train_batched")
+
+
+def gnn_loss(params, batch: dict, cfg: mace_mod.MACEConfig,
+             kind: str) -> torch.Tensor:
+    """The reference's loss of a GNN kind (module docstring) on a batch
+    of tensors on the params' device."""
+    node_logits, energies = mace_mod.forward(
+        params, batch["node_feats"], batch["positions"],
+        batch["senders"], batch["receivers"], cfg,
+        edge_mask=batch.get("edge_mask"),
+        graph_ids=batch.get("graph_ids"),
+        n_graphs=batch.get("n_graphs_static", 1))
+    if kind == "gnn_train_batched":
+        return torch.mean(torch.square(energies - batch["energy_targets"]))
+    logz = torch.logsumexp(node_logits, dim=-1)
+    gold = torch.gather(node_logits, -1,
+                        batch["labels"][:, None].to(torch.int64))[:, 0]
+    ce = logz - gold
+    # padded node slots (and, for sampled training, non-seed nodes) carry
+    # zero loss weight
+    w = batch["node_mask"]
+    if kind == "gnn_train_sampled":
+        w = w * batch["seed_mask"]
+    return torch.sum(ce * w) / torch.clamp_min(torch.sum(w), 1.0)
+
+
+def make_gnn_train_step(cfg: mace_mod.MACEConfig, kind: str,
+                        adamw: AdamWConfig | None = None):
+    """``step(params, opt_state, batch)`` → (params, opt_state, loss):
+    ``gnn_loss`` of ``kind``, its gradient, then AdamW (``adamw``,
+    default lr 3e-4, weight decay 0.1) under the warm-up/cosine
+    schedule, writing params and state in place.  A batch holds
+    ``shapes.input_specs``' keys as numpy arrays or tensors (moved to the
+    params' device) and ``n_graphs_static``, the batched kind's graph
+    count (default 1)."""
+    if kind not in GNN_KINDS:
+        raise ValueError(f"unknown GNN step kind {kind!r}")
+    adamw = adamw or AdamWConfig()
+
+    def step_fn(params, opt_state, batch):
+        device = params["embed"].device
+        batch = {k: _on(v, device) if isinstance(v, (np.ndarray, torch.Tensor))
+                 else v for k, v in batch.items()}
+        live = tree_lib.map_(lambda p: p.detach().requires_grad_(), params)
+        loss = gnn_loss(live, batch, cfg, kind)
+        loss.backward()
+        # a head the kind's loss does not read has a zero gradient, as
+        # in the reference (its weight decay still applies)
+        grads = tree_lib.map_(
+            lambda p: torch.zeros_like(p) if p.grad is None else p.grad, live)
+        lr = warmup_cosine(opt_state["step"], adamw.lr, WARMUP_STEPS,
+                           TOTAL_STEPS)
+        opt_state.update(adamw_update(grads, opt_state, params, adamw,
+                                      lr)[1])
+        return params, opt_state, loss.detach()
+
+    return step_fn
+
+
+# ==========================================================================
 # recsys steps
 # ==========================================================================
 
@@ -444,6 +533,17 @@ def recsys_opt_init(params: dict) -> dict:
             "g2": {k: rowwise.rowwise_init(v)["g2"] for k, v in tables.items()}}
 
 
+def _touched_rows(flat: torch.Tensor):
+    """(rows int64, inverse): the distinct indices of ``flat`` and each
+    index's place among them.  On ``meta`` (the dry run) their count is
+    data-dependent: the bound, every index a row of its own, stands in."""
+    if flat.device.type == "meta":
+        return (torch.empty(flat.shape, dtype=torch.int64, device="meta"),
+                torch.empty(flat.shape, dtype=torch.int64, device="meta"))
+    rows, inverse = torch.unique(flat, return_inverse=True)
+    return rows.to(torch.int64), inverse
+
+
 def _recsys_train_step(mod, cfg, device, adamw: AdamWConfig,
                        row_cfg: rowwise.RowwiseAdagradConfig):
     def step_fn(params, opt_state, batch):
@@ -456,8 +556,7 @@ def _recsys_train_step(mod, cfg, device, adamw: AdamWConfig,
         # offset is the row's place in the small table
         offs = emb_mod.cached_offsets(cfg.vocab_sizes, device)
         flat = sparse.to(torch.int32) + offs[None, :]
-        rows, inverse = torch.unique(flat.reshape(-1), return_inverse=True)
-        rows = rows.to(torch.int64)
+        rows, inverse = _touched_rows(flat.reshape(-1))
         local = (inverse.view(flat.shape) - offs[None, :]).to(torch.int32)
         touched = {k: v[rows].requires_grad_() for k, v in tables.items()}
         live = tree_lib.map_(lambda p: p.detach().requires_grad_(), dense)
@@ -496,7 +595,7 @@ def make_recsys_step(arch_id: str, cfg, kind: str, device=None,
     the reference's dense update gives, without a table-sized
     gradient."""
     mod = RECSYS_MODULES[cfg.name if cfg.name in RECSYS_MODULES else arch_id]
-    device = resolve_device(device)
+    device = cell_device(device)
     # full f32 in the towers on the card: a TF32 product keeps ~3 digits
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -520,8 +619,12 @@ def make_recsys_step(arch_id: str, cfg, kind: str, device=None,
             if n_real < n:
                 pos = torch.arange(n, device=scores.device)
                 scores = scores.masked_fill(pos >= n_real, float("-inf"))
-            return topk_ops.top_k(scores.to(torch.float32).contiguous(),
-                                  RETRIEVAL_TOP_K)
+            # meta (the dry run) runs nothing: the kernel's plain version
+            # gives the shapes the dry run counts
+            top_k = (topk_ref.top_k_ref if scores.device.type == "meta"
+                     else topk_ops.top_k)
+            return top_k(scores.to(torch.float32).contiguous(),
+                         RETRIEVAL_TOP_K)
 
         return retrieve
 
@@ -573,7 +676,7 @@ def build_lm_train_cell(arch_id, cfg: T.LMConfig, spec: shp.ShapeSpec,
     b, s, cuts = _sizes(spec, batch, seq)
     micro = 1
     n_micro = b // micro
-    gen = torch.Generator(device).manual_seed(seed)
+    gen = _generator(device, seed)
     master = T.param_tree(T.init(cfg, gen, device, leaf_dtype=torch.float32))
     model = T.LM(cfg, master, device, leaf_dtype=torch.bfloat16,
                  requires_grad=True)
@@ -593,7 +696,7 @@ def build_lm_prefill_cell(arch_id, cfg: T.LMConfig, spec: shp.ShapeSpec,
     """Weights and tokens from ``seed``; every prompt is ``seq`` real
     tokens long."""
     b, s, cuts = _sizes(spec, batch, seq)
-    gen = torch.Generator(device).manual_seed(seed)
+    gen = _generator(device, seed)
     model = T.init(cfg, gen, device)
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
                            device=device)
@@ -619,7 +722,7 @@ def build_lm_decode_cell(arch_id, cfg: T.LMConfig, spec: shp.ShapeSpec,
     step's token takes the last slot, and every slot is read) and the
     tokens, from ``seed``."""
     b, s, cuts = _sizes(spec, batch, seq)
-    gen = torch.Generator(device).manual_seed(seed)
+    gen = _generator(device, seed)
     model = T.init(cfg, gen, device)
     caches = T.init_cache(cfg, b, s, device=device)
     _fill_cache(caches, gen)
@@ -630,6 +733,112 @@ def build_lm_decode_cell(arch_id, cfg: T.LMConfig, spec: shp.ShapeSpec,
     fn = CapturedStep(make_lm_decode_step(cfg), args, device)
     return Cell(arch_id, spec.shape_id, fn, args,
                 {"kind": "lm_decode", "max_len": s, "reduced": cuts})
+
+
+def _gnn_sizes(spec: shp.ShapeSpec, graph_cut: int | None):
+    """(nodes, edges, node slots, edge slots, cuts): the shape's logical
+    sizes divided by ``graph_cut`` and padded to 512, each cut listed."""
+    m = spec.meta
+    if graph_cut is None or graph_cut == 1:
+        return (m["n_nodes"], m["n_edges"], m["pad_nodes"], m["pad_edges"],
+                [])
+    if spec.kind != "gnn_train" or graph_cut < 1:
+        raise ValueError(f"shape {spec.shape_id} takes no graph_cut "
+                         f"{graph_cut} (only a whole-graph shape is cut)")
+    n, e = m["n_nodes"] // graph_cut, m["n_edges"] // graph_cut
+    return (n, e, shp._pad512(n), shp._pad512(e),
+            [f"n_nodes {m['n_nodes']} -> {n}",
+             f"n_edges {m['n_edges']} -> {e}"])
+
+
+def _padded(a: np.ndarray, slots: int) -> np.ndarray:
+    out = np.zeros((slots,) + a.shape[1:], a.dtype)
+    out[:a.shape[0]] = a
+    return out
+
+
+def _gnn_arrays(spec: shp.ShapeSpec, cfg, n, e, pad_n, pad_e, seed):
+    """(batch of numpy arrays with ``input_specs``' keys, meta entries).
+    Node slots past the graph's nodes hold zero features and positions
+    (their energy is exactly 0: h stays 0 through every layer), edge
+    slots past its edges are ``(0, 0)``; the masks are float32."""
+    m = spec.meta
+    cursor = pipeline.DataCursor(seed=seed)
+    if spec.kind == "gnn_train_sampled":
+        # a base graph of the slots' size, 1,024 seeds, fanouts (15, 10)
+        g = pipeline.gnn_graph(cursor, n, n * MINIBATCH_BASE_DEGREE,
+                               cfg.d_feat)
+        rng = np.random.default_rng(seed)
+        seeds = rng.choice(n, size=m["batch_nodes"], replace=False)
+        sub = sampler_mod.sample_subgraph(
+            sampler_mod.CSRGraph(n, g["senders"], g["receivers"]), seeds,
+            tuple(m["fanout"]), rng)
+        keep = sub.node_mask[:, None]
+        batch = {
+            "node_feats": np.where(keep, g["node_feats"][sub.node_ids], 0.0
+                                   ).astype(np.float32),
+            "positions": np.where(keep, g["positions"][sub.node_ids], 0.0
+                                  ).astype(np.float32),
+            "senders": sub.senders, "receivers": sub.receivers,
+            "labels": g["labels"][sub.node_ids],
+            "edge_mask": sub.edge_mask.astype(np.float32),
+            "node_mask": sub.node_mask.astype(np.float32),
+            "seed_mask": sub.seed_mask.astype(np.float32),
+        }
+        return batch, {"base_nodes": n, "base_edges": n * MINIBATCH_BASE_DEGREE,
+                       "sampled_nodes": int(sub.node_mask.sum()),
+                       "sampled_edges": int(sub.edge_mask.sum())}
+    g = pipeline.gnn_graph(cursor, n, e, cfg.d_feat, n_graphs=m["n_graphs"])
+    batch = {
+        "node_feats": _padded(g["node_feats"], pad_n),
+        "positions": _padded(g["positions"], pad_n),
+        "senders": _padded(g["senders"], pad_e),
+        "receivers": _padded(g["receivers"], pad_e),
+        "labels": _padded(g["labels"], pad_n),
+        "edge_mask": _padded(np.ones(e, np.float32), pad_e),
+        "node_mask": _padded(np.ones(n, np.float32), pad_n),
+    }
+    if spec.kind == "gnn_train_batched":
+        batch["graph_ids"] = _padded(g["graph_ids"], pad_n)
+        batch["energy_targets"] = g["energy_targets"]
+    return batch, {}
+
+
+def build_gnn_cell(arch_id, cfg, spec: shp.ShapeSpec, device, seed=0,
+                   graph_cut: int | None = None) -> Cell:
+    """MACE at the shape's feature width (``d_feat``), weights from
+    ``seed`` (``mace.init``), the graph from the data pipeline
+    (``gnn_graph`` at ``DataCursor(seed)``): the whole-graph shapes at
+    their sizes, ``molecule`` as 128 graphs of 30 nodes and 64 edges,
+    ``minibatch_lg`` sampled (fanouts (15, 10) from 1,024 seeds drawn
+    with ``np.random.default_rng(seed)``) from a base graph of 169,984
+    nodes and 25 edges a node.  ``graph_cut`` divides a whole-graph
+    shape's nodes and edges (``meta["reduced"]`` lists it).  ``fn`` is
+    the eager train step, ``args`` (params, opt_state, batch), updated
+    in place by every call.  On ``meta`` the batch is
+    ``shapes.input_specs``' meta tensors at the cell's slot counts."""
+    m = spec.meta
+    cfg = replace(cfg, d_feat=m["d_feat"])
+    n, e, pad_n, pad_e, cuts = _gnn_sizes(spec, graph_cut)
+    params = mace_mod.init(cfg, _generator(device, seed), device)
+    meta = {"kind": spec.kind, "n_nodes": n, "n_edges": e,
+            "pad_nodes": pad_n, "pad_edges": pad_e, "reduced": cuts}
+    if device.type == "meta":
+        batch = shp.input_specs(cfg, replace(spec, meta={
+            **m, "pad_nodes": pad_n, "pad_edges": pad_e}))
+    else:
+        arrays, extra = _gnn_arrays(spec, cfg, n, e, pad_n, pad_e, seed)
+        meta.update(extra)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                 for k, v in arrays.items()}
+    step = make_gnn_train_step(cfg, spec.kind)
+    n_graphs = m["n_graphs"]
+
+    def step_with_static(params, opt_state, batch):
+        return step(params, opt_state, {**batch, "n_graphs_static": n_graphs})
+
+    return Cell(arch_id, spec.shape_id, step_with_static,
+                (params, adamw_init(params), batch), meta)
 
 
 def _field_ids(gen, vocab_sizes, rows: int, device) -> torch.Tensor:
@@ -649,7 +858,7 @@ def build_recsys_cell(arch_id, cfg, spec: shp.ShapeSpec, device,
     ``DataCursor(seed)``: labels that depend on field 0), its ``fn`` is
     the eager train step and its ``args`` (params, opt_state, batch)."""
     m = spec.meta
-    gen = torch.Generator(device).manual_seed(seed)
+    gen = _generator(device, seed)
     params = RECSYS_MODULES[arch_id].init(cfg, gen, device)
     step = make_recsys_step(arch_id, cfg, spec.kind, device)
     if spec.kind == "recsys_train":
@@ -710,7 +919,7 @@ def build_ragdb_cell(arch_id, cfg, spec: shp.ShapeSpec, device,
     n_docs = m["docs_per_device"] * n_shards
     cuts = ([f"shards {REFERENCE_RAGDB_SHARDS} -> {n_shards}"]
             if n_shards < REFERENCE_RAGDB_SHARDS else [])
-    gen = torch.Generator(device).manual_seed(seed)
+    gen = _generator(device, seed)
     b = m["query_batch"]
     dv = torch.randn((n_docs, cfg.dim), generator=gen, device=device)
     dv = dv / dv.norm(dim=1, keepdim=True)
@@ -734,20 +943,24 @@ def build_ragdb_cell(arch_id, cfg, spec: shp.ShapeSpec, device,
 def build_cell(arch_id: str, shape_id: str, smoke: bool = False, device=None,
                *, batch: int | None = None, seq: int | None = None,
                seed: int = 0, n_shards: int | None = None,
-               use_kernel: bool = False) -> Cell:
+               use_kernel: bool = False,
+               graph_cut: int | None = None) -> Cell:
     """The cell of ``arch_id`` (its SMOKE config with ``smoke``) at
-    ``shape_id``, on ``device`` (cuda unless the CPU is asked for).
-    ``batch`` and ``seq`` cut the reference's shape, and the cell's
+    ``shape_id``, on ``device`` (cuda unless the CPU or ``meta`` is
+    asked for).  ``batch`` and ``seq`` cut the reference's shape, and
+    ``graph_cut`` a whole-graph GNN shape's nodes and edges; the cell's
     ``meta["reduced"]`` lists each cut.  ``n_shards`` and ``use_kernel``
     are the ragdb cells' (``build_ragdb_cell``)."""
-    family = configs.ARCHS[arch_id].family
-    spec = shp.shapes_for_family(family)[shape_id]
-    if spec.kind in _NOT_PORTED:
-        raise NotImplementedError(f"{arch_id} {shape_id}: "
-                                  f"{_NOT_PORTED[spec.kind]}")
     arch = configs.get(arch_id)
+    spec = shp.shapes_for_family(arch.family)[shape_id]
     cfg = arch.smoke_config if smoke else arch.config
-    device = resolve_device(device)
+    device = cell_device(device)
+    if graph_cut is not None and spec.kind not in GNN_KINDS:
+        raise ValueError(f"shape {shape_id} has no graph to cut")
+    if spec.kind in GNN_KINDS:
+        if batch is not None or seq is not None:
+            raise ValueError(f"shape {shape_id} has no batch or seq to cut")
+        return build_gnn_cell(arch_id, cfg, spec, device, seed, graph_cut)
     if spec.kind == "ragdb_retrieve":
         if batch is not None or seq is not None:
             raise ValueError(f"shape {shape_id} has no batch or seq to cut")

@@ -1,12 +1,14 @@
 """Shared recsys config, loss and weight carrying (the JAX package's
-``models/recsys/base.py``, plus ``params_from_numpy`` and
-``opt_state_from_numpy``)."""
+``models/recsys/base.py``, plus ``params_from_numpy``, which is
+``optim.tree.from_numpy``, and ``opt_state_from_numpy``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.optim.tree import from_numpy as params_from_numpy  # noqa: F401
 
 # Criteo 1TB per-field vocabulary sizes (MLPerf DLRM reference;
 # facebookresearch/dlrm README).  dlrm archs use these 26 directly.
@@ -83,21 +85,6 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
     z = logits.clamp(-30.0, 30.0)
     return (z.clamp_min(0.0) - z * labels
             + torch.log1p(torch.exp(-z.abs()))).mean()
-
-
-def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
-    """The JAX package's recsys parameters (``dlrm/deepfm/autoint.init``,
-    leaves as numpy arrays, nested dicts and lists) as the port's: the
-    same tree of tensors on ``device``, each a copy (never a view of the
-    caller's buffer), floating leaves cast to ``dtype`` when given."""
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [params_from_numpy(v, device, dtype) for v in tree]
-    t = torch.tensor(np.asarray(tree), device=device)
-    if dtype is not None and t.is_floating_point():
-        t = t.to(dtype)
-    return t
 
 
 def opt_state_from_numpy(state: dict, device) -> dict:

@@ -2,8 +2,12 @@
 package's order: a dict's keys sorted, a list's items in order.  The
 optimizers map over them leaf for leaf, and the checkpointer names each
 leaf by its path (``"/"``-joined keys and list indices, the JAX
-package's key names)."""
+package's key names).  ``from_numpy`` carries a JAX package tree (numpy
+leaves) across as the port's."""
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 
 def paths(tree, prefix: tuple = ()):
@@ -43,3 +47,18 @@ def from_leaves(template, leaves_: list):
     ``leaves`` order)."""
     it = iter(leaves_)
     return map_(lambda _: next(it), template)
+
+
+def from_numpy(tree, device, dtype: torch.dtype | None = None):
+    """A JAX package parameter tree (leaves as numpy arrays, nested dicts
+    and lists) as the port's: the same tree of tensors on ``device``,
+    each a copy (never a view of the caller's buffer), floating leaves
+    cast to ``dtype`` when given."""
+    if isinstance(tree, dict):
+        return {k: from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [from_numpy(v, device, dtype) for v in tree]
+    t = torch.tensor(np.asarray(tree), device=device)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t

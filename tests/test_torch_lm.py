@@ -258,7 +258,7 @@ def test_config_param_counts_match_jax(arch):
         assert cfg.attn_scale == rc.attn_scale
 
 
-PORTED = [a for a in ref_configs.ARCHS if a != "mace"]
+PORTED = list(ref_configs.ARCHS)
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -279,7 +279,10 @@ def test_registered_config_equals_jax(arch):
 
 
 def test_registry_resolves_llama_and_names_the_roadmap_for_the_rest():
-    """Every arch resolves but the GNN's, which names its ROADMAP item."""
+    """Every arch of the JAX package's registry resolves to a config
+    module of the port, none left to a ROADMAP item (the name is from
+    when only llama3.2-3b resolved; it is kept so that the test keeps
+    its history)."""
     for name in ("config", "smoke_config"):
         got = getattr(configs.get("llama3.2-3b"), name)
         want = getattr(ref_configs.get("llama3.2-3b"), name)
@@ -287,11 +290,7 @@ def test_registry_resolves_llama_and_names_the_roadmap_for_the_rest():
     assert configs.get("llama3.2-3b").config.compute_dtype == torch.bfloat16
     assert set(configs.ARCHS) == set(ref_configs.ARCHS)
     for arch in configs.ARCHS:
-        if arch == "mace":
-            with pytest.raises(NotImplementedError, match="item 11"):
-                configs.get(arch)
-        else:
-            assert configs.get(arch).module.startswith("repro_torch.")
+        assert configs.get(arch).module.startswith("repro_torch.")
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
 

@@ -284,8 +284,14 @@ def test_registry_configs_and_param_counts_equal_the_jax_package(arch):
 
 
 def test_gnn_arch_still_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        configs.get("mace")
+    """The GNN arch resolves to the port's own config module (the name
+    is the refusal this test held until mace was ported; it is kept so
+    that the test keeps its history; ``tests/test_torch_gnn.py`` holds
+    the model)."""
+    spec = configs.get("mace")
+    assert spec.family == "gnn"
+    assert spec.module == "repro_torch.configs.mace"
+    assert type(spec.config).__module__ == "repro_torch.models.gnn.mace"
 
 
 def test_shape_tables_equal_the_jax_package():

@@ -17,8 +17,9 @@ same functions are captured into CUDA graphs and replayed, which
   deepseek-v2-lite-16b SMOKE prefill_32k and decode_32k, cut in batch
   and seq; dlrm-rm2 and deepfm SMOKE serve_p99 and retrieval_cand at
   their full shapes, rtol/atol 1e-5 as `tests/test_torch_recsys.py`);
-- the kinds that are not ported (the GNN's; the train kinds are held
-  in ``tests/test_torch_train.py``), and the launch-count arithmetic a
+- the GNN kinds' cells, built and stepped (the steps are held in
+  ``tests/test_torch_gnn.py``, the other train kinds in
+  ``tests/test_torch_train.py``), and the launch-count arithmetic a
   captured step applies.
 """
 import functools
@@ -41,6 +42,7 @@ from repro_torch.kernels import counters
 from repro_torch.launch import steps
 from repro_torch.models import transformer as T
 from repro_torch.models.recsys import base
+from repro_torch.optim import tree as tree_lib
 
 from test_torch_lm import LM_ARCHS, _carried, _close, _tokens, port_config
 
@@ -358,13 +360,24 @@ def test_a_captured_step_takes_new_inputs_into_its_buffers():
 
 
 @pytest.mark.parametrize("arch,shape_id,item", [
-    ("mace", "full_graph_sm", "item 11"),
-    ("mace", "minibatch_lg", "item 11"),
-    ("mace", "molecule", "item 11"),
+    ("mace", "full_graph_sm", "gnn_train"),
+    ("mace", "minibatch_lg", "gnn_train_sampled"),
+    ("mace", "molecule", "gnn_train_batched"),
 ])
 def test_unported_kinds_raise_naming_their_roadmap_item(arch, shape_id, item):
-    with pytest.raises(NotImplementedError, match=item):
-        steps.build_cell(arch, shape_id, smoke=True, device="cpu")
+    """The GNN kinds build and step (the name is the refusal this test
+    held until they were ported; it is kept so that the test keeps its
+    history): ``build_cell`` gives
+    the cell of its kind, uncut, and one step (lr 0) returns a finite
+    loss with the params' bits unchanged (``tests/test_torch_gnn.py``
+    holds the steps to the JAX package's)."""
+    cell = steps.build_cell(arch, shape_id, smoke=True, device="cpu")
+    assert cell.meta["kind"] == item and cell.meta["reduced"] == []
+    params = [t.clone() for t in tree_lib.leaves(cell.args[0])]
+    _, opt, loss = cell.fn(*cell.args)
+    assert np.isfinite(float(loss)) and int(opt["step"]) == 1
+    assert all(torch.equal(a, b)
+               for a, b in zip(params, tree_lib.leaves(cell.args[0])))
 
 
 @pytest.mark.parametrize("shape_id,n_shards", [("pod_16m", None),

@@ -576,8 +576,9 @@ def test_meshes():
     assert meshlib.dp_axes(mesh) == ("data",) and meshlib.dp_size(mesh) == 1
     assert meshlib.all_axes(mesh) == ("data", "model")
     assert meshlib.make_host_mesh(4, "cpu").placement == "logical"
-    with pytest.raises(NotImplementedError, match="item 15"):
-        meshlib.make_production_mesh()
+    prod = meshlib.make_production_mesh()
+    assert prod.shape == {"data": 16, "model": 16}
+    assert meshlib.dp_axes(prod) == ("data",) and meshlib.dp_size(prod) == 16
 
 
 # ---------------------------------------------------------------------------
@@ -588,13 +589,8 @@ def test_cells_and_input_specs_equal_the_jax_package():
     assert configs.cells() == ref_configs.cells()
     for arch_id, shape_id in configs.cells():
         family = configs.ARCHS[arch_id].family
-        if family == "gnn":
-            from repro.configs import mace as ref_mace
-
-            cfg = rcfg = ref_mace.FULL
-        else:
-            cfg = configs.get(arch_id).config
-            rcfg = ref_configs.get(arch_id).config
+        cfg = configs.get(arch_id).config
+        rcfg = ref_configs.get(arch_id).config
         spec = shapes.shapes_for_family(family)[shape_id]
         got = shapes.input_specs(cfg, spec)
         want = ref_shapes.input_specs(
