@@ -9,9 +9,10 @@ Phases (any failure raises and the script exits non-zero):
    of the port from ``src/repro_torch/csrc/`` (one ``nvcc`` per source,
    all at once), with each library's registers and spills, and per kernel
    instantiation its registers, static shared memory and spills and
-   whether its SASS holds HGMMA (wgmma), UTMALDG (TMA) and HMMA
-   (mma.sync); the wgmma designs must hold the first two, and the top-k
-   radix select's four kernels must be there.
+   whether its SASS holds HGMMA (wgmma), UTMALDG (TMA), HMMA
+   (mma.sync) and USETMAXREG (setmaxnreg); the wgmma designs must hold
+   the first two, the warp-specialised Dh=256 flash design the fourth
+   too, and the top-k radix select's four kernels must be there.
 2. Kernels against their plain versions, on the card: the fused HSF
    top-k at the serving shape (N=65,536 docs, D=4,096, W=128 signature
    words, B=64 queries, k=16) and at its edges (ragged N, n_valid < N,
@@ -25,11 +26,18 @@ Phases (any failure raises and the script exits non-zero):
    Dh=32 in f32, window + softcap at Dh=256, non-causal, q_offset with
    Lq < Lk, kv_len < Lk, fully masked rows, the SMOKE heads of 16 in
    bf16 and f32, Dh=256 in f32, Lq=700 and Lq=1, GQA 3:1 at Dh=64,
-   kv_len ending mid-tile in an Lk of 611) and at phase 11's model
+   kv_len ending mid-tile in an Lk of 611; at Dh=256 in bf16 a ragged
+   last 128-row query tile, Lq=1, kv_len ending mid-tile, fully masked
+   rows, non-causal, B=2 contiguous and transposed, GQA 1:1 and 2:1)
+   and at phase 11's model
    shapes (gemma2: Dh=256, softcap 50, window 4,096 at L=512 and 8,192;
    gemma3: window 1,024 at L=2,048; qwen3: GQA 8:1; deepseek's MLA heads
    of 192/128 zero-padded to 256, against plain attention over the
-   unpadded heads); then the
+   unpadded heads), and at Dh=256 with logits that reach the softcap
+   (q scaled by 12 under a cap of 50, at L=512 and gemma2's 8,192, or
+   a cap of 5; with and without a window), each checked to move the
+   result by over ten times its atol; bf16 Dh=256 is held at an atol
+   of at most a tenth of the plain result's rms; then the
    single-query HSF score at the serving shape in f32 and bf16 and at
    its edges (ragged N, D without 16-byte rows, W=3, n = 0, the boost
    exactly β); then the top-k radix select at N=65,536 (one launch) and
@@ -152,7 +160,8 @@ Phases (any failure raises and the script exits non-zero):
    prefill and decode at the 512 bucket, eager and replayed, the
    replay's device idle share, the MoE layers' grouped products against
    their bound at T = 512 and 1, the flash kernel at the arch's shape
-   against SDPA and its bound, and the peak allocated bytes.
+   against SDPA and its bound (gemma2's also without its softcap: the
+   softcap's share), and the peak allocated bytes.
 12. The sharded retrieval planes, on logical shards of the one card:
    (a) ``build_sharded_retrieve`` on ragdb FULL (dim 4,096, W = 128,
    k = 16, B = 64) at pod_16m's 65,536 docs a shard, S ∈ {1, 4}, whole
@@ -301,12 +310,14 @@ def _log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 # instantiation -> SASS instructions it must hold: the Hopper designs'
-# warpgroup products (HGMMA) and TMA loads (UTMALDG); the radix select's
-# kernels must be there (the one-launch cluster, the two reads of the
-# multi-launch path and its cluster over the candidate buffer)
+# warpgroup products (HGMMA) and TMA loads (UTMALDG), and the register
+# hand-over of the warp-specialised Dh 256 design (USETMAXREG); the radix
+# select's kernels must be there (the one-launch cluster, the two reads
+# of the multi-launch path and its cluster over the candidate buffer)
 _SASS_REQUIRED = {
     "flash_fwd_wgmma<64>": ("HGMMA", "UTMALDG"),
     "flash_fwd_wgmma<128>": ("HGMMA", "UTMALDG"),
+    "flash_fwd_ws256": ("HGMMA", "UTMALDG", "USETMAXREG"),
     "hsf_topk_tiles": ("HGMMA", "UTMALDG"),
     "topk_cluster<1>": (),
     "topk_cluster<0>": (),
@@ -378,7 +389,8 @@ def _sass_report(build, reports):
         for body in re.split(r"\n\s*Function : ", out)[1:]:
             mangled = body.split("\n", 1)[0].strip()
             label = _kernel_label(mangled)
-            has = {op: op in body for op in ("HGMMA", "UTMALDG", "HMMA")}
+            has = {op: op in body
+                   for op in ("HGMMA", "UTMALDG", "HMMA", "USETMAXREG")}
             regs, smem, spill = usage.get(mangled, ("?", 0, 0))
             _log(f"  SASS {name}: {label:28s} {regs:>3s} registers, "
                  f"{smem:6d} B static smem, {spill} B spills, " + " ".join(
@@ -987,13 +999,12 @@ def _attn_operands(torch, gen, b, hq, hkv, lq, lk, dh, dtype,
     return one(hq, lq), one(hkv, lk), one(hkv, lk)
 
 
-def phase_flash_kernel(torch, fa_ops, fa_ref):
-    """Flash kernel against its plain version; returns the largest
-    |Δ| over the cases."""
-    gen = torch.Generator(device="cuda").manual_seed(2)
+def _flash_cases(torch):
+    """Phase 2's flash cases: name, (b, hq, hkv, lq, lk, dh), dtype,
+    strided, options."""
     bf16, f32 = torch.bfloat16, torch.float32
     sv = ATTN_SERVE
-    cases = [
+    return [
         # name, (b, hq, hkv, lq, lk, dh), dtype, strided, options
         ("serving shape", (sv["b"], sv["hq"], sv["hkv"], sv["l"], sv["l"],
                            sv["dh"]), bf16, True, {}),
@@ -1028,6 +1039,26 @@ def phase_flash_kernel(torch, fa_ops, fa_ref):
          False, {"q_offset": 511, "kv_len": 555}),
         ("kv_len=37 < Lk=611 Dh=64 window 20", (1, 6, 2, 90, 611, 64),
          bf16, True, {"kv_len": 37, "window": 20}),
+        # the warp-specialised Dh=256 design's edges: a ragged last
+        # 128-row query tile, a single row, kv_len ending mid-tile,
+        # fully masked rows, non-causal, B=2 with contiguous operands
+        # (TMA row slot 1) and transposed ones (slot 2), GQA 1:1 and 2:1
+        ("Dh=256 Lq=700 (ragged query tile)", (1, 16, 8, 700, 700, 256),
+         bf16, True, {}),
+        ("Dh=256 Lq=1 q_offset=610 Lk=611", (1, 16, 8, 1, 611, 256), bf16,
+         True, {"q_offset": 610}),
+        ("Dh=256 kv_len=555 < Lk=611", (1, 16, 8, 100, 611, 256), bf16,
+         True, {"q_offset": 511, "kv_len": 555}),
+        ("Dh=256 fully masked rows (q_offset=-40)",
+         (1, 4, 2, 200, 200, 256), bf16, True, {"q_offset": -40}),
+        ("Dh=256 non-causal", (2, 4, 2, 300, 300, 256), bf16, True,
+         {"causal": False}),
+        ("Dh=256 B=2 contiguous", (2, 8, 4, 256, 256, 256), bf16, False,
+         {}),
+        ("Dh=256 B=2 transposed", (2, 8, 4, 256, 256, 256), bf16, True,
+         {}),
+        ("Dh=256 GQA 1:1", (1, 8, 8, 400, 400, 256), bf16, True, {}),
+        ("Dh=256 GQA 2:1", (1, 8, 4, 400, 400, 256), bf16, True, {}),
         # phase 11's model shapes: gemma2 (Dh 256, softcap 50, window
         # 4,096, which masks at 8,192), gemma3 (window 1,024 masking at
         # 2,048, query scale 168^-1/2), qwen3 (GQA 8:1)
@@ -1041,30 +1072,85 @@ def phase_flash_kernel(torch, fa_ops, fa_ref):
          (1, 32, 16, 2048, 2048, 128), bf16, True,
          {"window": 1024, "scale": 168 ** -0.5}),
         ("qwen3 GQA 32:4 L=512", (1, 32, 4, 512, 512, 128), bf16, True, {}),
+        # Dh=256 with logits that reach the softcap (on N(0, 1) logits a
+        # cap of 50 moves none by more than ~0.01): q scaled by 12 under
+        # gemma2's cap of 50, or a cap of 5; causal at L=512 gives tiles
+        # wholly inside the mask and tiles the mask cuts, a window of
+        # 300 also cuts tiles below the diagonal
+        ("Dh=256 softcap 50 reached (q x12)", (1, 8, 4, 512, 512, 256),
+         bf16, True, {"softcap": 50.0, "q_gain": 12.0, "cap_acts": True}),
+        ("Dh=256 softcap 50 reached window 300",
+         (1, 8, 4, 512, 512, 256), bf16, True,
+         {"softcap": 50.0, "window": 300, "q_gain": 12.0, "cap_acts": True}),
+        ("Dh=256 softcap 5", (1, 8, 4, 512, 512, 256), bf16, True,
+         {"softcap": 5.0, "cap_acts": True}),
+        ("Dh=256 softcap 5 window 300", (1, 8, 4, 512, 512, 256), bf16,
+         True, {"softcap": 5.0, "window": 300, "cap_acts": True}),
+        ("gemma2 L=8192 softcap 50 reached", (1, 16, 8, 8192, 8192, 256),
+         bf16, True, {"window": 4096, "softcap": 50.0, "q_gain": 12.0,
+                      "cap_acts": True}),
     ]
-    worst = 0.0
-    for name, (b, hq, hkv, lq, lk, dh), dtype, strided, opts in cases:
+
+
+def phase_flash_kernel(torch, fa_ops, fa_ref, cases=None):
+    """Flash kernel against its plain version over ``cases`` (default:
+    all of ``_flash_cases``) and MLA's padded heads; returns the largest
+    |Δ| and {case: (max |Δ|, atol, rms |Δ|)}.  bf16 Dh=256 cases are held at an atol
+    of at most a tenth of the plain result's rms (at L=8,192 a typical
+    |o| is ~0.03, under BF16_TOL); a case with ``q_gain`` scales q by it,
+    and one with ``cap_acts`` must differ from the uncapped result by
+    over ten times its atol (the softcap reaches its logits)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    f32 = torch.float32
+    worst, errs = 0.0, {}
+    for name, (b, hq, hkv, lq, lk, dh), dtype, strided, opts in (
+            cases or _flash_cases(torch)):
+        opts = dict(opts)
+        gain = opts.pop("q_gain", None)
+        cap_acts = opts.pop("cap_acts", False)
         q, k, v = _attn_operands(torch, gen, b, hq, hkv, lq, lk, dh, dtype,
                                  strided)
+        if gain is not None:
+            q = q * gain  # keeps the transposed strides
         kw = {"scale": dh ** -0.5, "causal": True, **opts}
         got = fa_ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         want = fa_ref.attention_ref(q, k, v, **kw)
-        tol = F32_TOL if dtype == f32 else BF16_TOL
+        tol = atol = F32_TOL if dtype == f32 else BF16_TOL
+        scaled = dtype != f32 and dh == 256
+        if scaled:
+            rms = want.float().square().mean().sqrt().item()
+            atol = min(BF16_TOL, 0.1 * rms)
         assert got.shape == want.shape and got.dtype == dtype, name
         assert torch.isfinite(got).all(), name
-        err = (got.float() - want.float()).abs().max().item()
+        delta = got.float() - want.float()
+        err = delta.abs().max().item()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol, msg=name)
+                                   atol=atol, msg=name)
         q_off = opts.get("q_offset", 0)
         if q_off < 0:  # rows before position 0 see no key: exactly 0
             dead = got[:, :, :-q_off]
             assert dead.numel() and not dead.any(), name
         worst = max(worst, err)
-        _log(f"  flash == plain: {name:34s} {str(dtype)[6:]:8s} "
-             f"max |Δ| {err:.3e} (tol {tol:g})")
-        del q, k, v, got, want
-    return max(worst, _check_mla_padding(torch, fa_ops, fa_ref, gen))
+        errs[name] = (err, atol, delta.square().mean().sqrt().item())
+        if scaled:
+            cap = ""
+            if "softcap" in kw:
+                bare = {k_: v_ for k_, v_ in kw.items() if k_ != "softcap"}
+                moved = (fa_ref.attention_ref(q, k, v, **bare).float()
+                         - want.float()).abs().max().item()
+                assert not cap_acts or moved > 10 * atol, (name, moved, atol)
+                cap = f"; the cap moves it {moved:.3g}"
+            _log(f"  flash == plain: {name:34s} {str(dtype)[6:]:8s} "
+                 f"max |Δ| {err:.3e}, rms {errs[name][2]:.3e} (rtol "
+                 f"{tol:g}, atol {atol:.3g} = min({tol:g}, rms/10){cap})")
+        else:
+            _log(f"  flash == plain: {name:34s} {str(dtype)[6:]:8s} "
+                 f"max |Δ| {err:.3e} (tol {tol:g})")
+        del q, k, v, got, want, delta
+    mla_err = _check_mla_padding(torch, fa_ops, fa_ref, gen)
+    errs["deepseek MLA padded"] = (mla_err, BF16_TOL, None)
+    return max(worst, mla_err), errs
 
 
 def _mla_operands(torch, gen, l, strided=True):
@@ -3173,7 +3259,8 @@ def _time_attention(torch, fa_ops, fa_ref, label, heads, l, opts,
     which it lacks) and the bound for one model's prefill attention at
     L = l.  heads = (hq, hkv, d_qk, d_v); ``mla_pad`` pads the heads to
     that size first, as ``models/mla.apply`` does (the padding copies
-    are timed with the kernel)."""
+    are timed with the kernel).  With a softcap, the kernel is also
+    timed without it: the softcap's share of its time."""
     import torch.nn.functional as F
 
     from repro_torch.models import mla
@@ -3211,6 +3298,16 @@ def _time_attention(torch, fa_ops, fa_ref, label, heads, l, opts,
     out.update(bound_ms=max(bytes_ms, ops_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
     extra = ""
+    if "softcap" in kw:
+        # the softcap's share of the kernel's time
+        bare_kw = {k_: v_ for k_, v_ in kw.items() if k_ != "softcap"}
+        no_cap = lambda: fa_ops.flash_attention(  # noqa: E731
+            q, k, v, scale=scale, **bare_kw)
+        no_cap()
+        out["no_softcap_ms"] = _queued_ms(torch, no_cap, reps, 5)
+        out["softcap_share"] = 1 - out["no_softcap_ms"] / out["ms"]
+        extra = (f" (without the softcap {out['no_softcap_ms']:.4f} ms: "
+                 f"the softcap {out['softcap_share']:.1%} of the time)")
     if mla_pad:
         qp, kp, vp = (F.pad(t, (0, mla_pad - t.shape[-1])) for t in (q, k, v))
         bare = lambda: fa_ops.flash_attention(qp, kp, vp, scale=scale)  # noqa: E731
@@ -4998,7 +5095,7 @@ def main(argv=None) -> int:
 
     with _phase("phase 2: kernels against their plain versions on the card"):
         max_err = phase_kernel(torch, np, ops, ref)
-        fa_max_err = phase_flash_kernel(torch, fa_ops, fa_ref)
+        fa_max_err, _ = phase_flash_kernel(torch, fa_ops, fa_ref)
         score_max_err = phase_hsf_score_kernel(torch, np, ops, ref)
         topk_max_err = phase_topk_kernel(torch, np, tk_ops, tk_ref)
         bag_max_err = phase_bag_kernel(torch, bag_ops, bag_ref, emb, rbase,

@@ -45,12 +45,35 @@
 //   max is taken over the raw dots and the scale rides in one FMA per
 //   exponent.  Not warp-specialised (one warpgroup issues its own TMA);
 //   two CTAs per SM overlap one's softmax with the other's products.
-// bf16, Dh = 16, 32 and 256 (`flash_fwd_bf16`): 64 query rows, 16 per
-//   warp; key tiles of 64 (32 at Dh = 256) in shared memory (rows padded
-//   by 16 bytes against bank conflicts), two tiles in flight by
-//   `cp.async`; S = q.k^T and O += P.V on `mma.sync.m16n8k16` with
-//   operands fetched by `ldmatrix` (`.trans` for V); S stays in
-//   registers as the A operand of P.V.
+// bf16, Dh = 256 (`flash_fwd_ws256`; gemma2's heads, and MLA's 192/128
+//   zero-padded by models/mla.py): warp-specialised.  At this width O's
+//   64 x 256 f32 carry alone is 128 registers a thread and one CTA of
+//   Q + two K/V stages takes 192 KB of shared memory, so one CTA per SM
+//   has to hide its own latency.  A producer warpgroup (`setmaxnreg`
+//   down to 24 registers) issues every TMA load (the maps and boxes of
+//   the Dh 64/128 design, four boxes a row); two consumer warpgroups
+//   (up to 240 registers) each own 64 query rows of one head, 128 a CTA
+//   (a 512-token prefill: 4 x 16 = 64 CTAs), and share each K/V tile:
+//   two slots each for K and V, full and empty mbarriers per slot, so a
+//   slot is refilled as soon as all eight consumer warps release it.  Q
+//   stays in shared memory as wgmma's A operand.  S = q.k^T is
+//   m64n64k16 over 16 k-steps; O += P.V is m64n256k16 with P from
+//   registers and V MN-major.  S_j is issued, then O is rescaled by tile
+//   j-1's factor while it runs and P_{j-1}.V_{j-1} is issued behind it;
+//   the two warpgroups drift apart and overlap one's softmax with the
+//   other's products (turns forced by named barriers, FA3's ping-pong,
+//   were slower here).  The softcap's tanh is `tanh.approx.f32` (one
+//   MUFU op; with tanhf the softcap was over a quarter of the kernel's
+//   time at gemma2's L = 8,192; chip_smoke.py holds it to the plain
+//   version on logits that reach the cap), and softcapped tiles wholly
+//   inside the mask take the max of tanh and fold the cap into one FMA
+//   per exponent, as the unmasked tiles do with the scale.
+// bf16, Dh = 16 and 32 (`flash_fwd_bf16`): 64 query rows, 16 per
+//   warp; key tiles of 64 in shared memory (rows padded by 16 bytes
+//   against bank conflicts), two tiles in flight by `cp.async`;
+//   S = q.k^T and O += P.V on `mma.sync.m16n8k16` with operands fetched
+//   by `ldmatrix` (`.trans` for V); S stays in registers as the A
+//   operand of P.V.
 // f32 (`flash_fwd_f32`): 32 query rows, 4 threads per row, key tiles of
 //   32, products in f32 FMAs on the CUDA cores (no TF32), P staged in
 //   shared memory for P.V.
@@ -209,10 +232,7 @@ template <int D, int BK>
 __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   using T = Bf16Tile<D, BK>;
   constexpr int BQ = T::kBQ, LD = T::kLD;
-  // Q's fragments stay in registers up to Dh = 128; at 256 the output
-  // carry alone takes 128 registers, so Q is re-read from shared memory.
-  constexpr bool kQInRegs = D <= 128;
-  static_assert(D % 16 == 0 && BK % 16 == 0, "mma tiles are 16 deep");
+  static_assert(D <= 32 && BK % 16 == 0, "mma.sync path: Dh = 16 or 32");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sKV = sQ + BQ * LD;  // stage s: K, then V, of BK rows each
@@ -259,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   // columns n*8..; 2,3 = the next 8 columns.
   const int v_off = (lrow + (lmat & 1) * 8) * LD + (lmat >> 1) * 8;
 
-  uint32_t qf[kQInRegs ? D / 16 : 1][4];
+  uint32_t qf[D / 16][4];  // Q's fragments, read once
   // This thread's rows of the carry: r = 0 -> row warp*16 + g, r = 1 -> +8.
   float o[D / 8][4];
 #pragma unroll
@@ -275,12 +295,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q) have landed
     __syncthreads();
-    if constexpr (kQInRegs) {
-      if (kt == kt_lo) {
+    if (kt == kt_lo) {
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          ldsm_x4(qf[kk], sQ + a_off + kk * 16);
-      }
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(qf[kk], sQ + a_off + kk * 16);
     }
     const __nv_bfloat16* sK = sKV + stage * 2 * BK * LD;
     const __nv_bfloat16* sV = sK + BK * LD;
@@ -295,12 +313,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t a[4];
-      if constexpr (kQInRegs) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
-      } else {
-        ldsm_x4(a, sQ + a_off + kk * 16);
-      }
+      for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
 #pragma unroll
       for (int n = 0; n < BK / 8; n += 2) {
         uint32_t kb[4];
@@ -436,6 +450,120 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// The Dh = 256 design's softcap tanh: `tanh.approx.f32`, one MUFU
+// instruction (max relative error 2^-10.99), and its logit2.
+__device__ __forceinline__ float tanh_cap(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float logit2_cap(const Params& p, float dot) {
+  if (p.has_softcap) return p.softcap_log2 * tanh_cap(dot * p.scale_over_cap);
+  return dot * p.scale_log2;
+}
+
+// The online softmax of one 64 x 64 tile in base 2, for the warpgroup
+// whose 64 query rows start at absolute position q_start: s (the f32
+// accumulator of q . k^T,
+// s[4i + e] = row row_base + 8*(e >> 1), key k0 + 8i + 2t + (e & 1))
+// becomes p, (m_run, l_run) advance and alpha is each row's rescale
+// factor.  The Dh = 256 design's; the Dh = 64/128 design keeps the same
+// steps inline, without the softcapped interior path.
+__device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[32],
+                                             float (&m_run)[2],
+                                             float (&l_run)[2],
+                                             float (&alpha)[2], int q_start,
+                                             int row_base, int t, int k0) {
+  constexpr int BQ = 64, BK = 64;
+  // Online softmax in base 2.  s[4i + e] is row row_base + 8*(e >> 1),
+  // key k0 + 8i + 2t + (e & 1).
+  const bool interior =
+      k0 + BK <= p.lk_eff && (!p.causal || k0 + BK - 1 <= q_start) &&
+      (!p.has_window || (q_start + BQ - 1) - k0 < p.window);
+  float mx[2] = {kMaskValue, kMaskValue}, m_next[2];
+  float rs[2] = {0.f, 0.f};
+  if (interior && p.has_softcap && p.softcap_log2 > 0.f) {
+    // Every key counts and the logit is softcap log2 e * t, t = tanh(dot
+    // * scale / softcap): take the max of t (the factor is positive),
+    // then fold the factor into one FMA per exponent.
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      s[e] = tanh_cap(s[e] * p.scale_over_cap);
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_next[r] = fmaxf(m_run[r], mx[r] * p.softcap_log2);
+      alpha[r] = ex2(m_run[r] - m_next[r]);
+    }
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int r = (e >> 1) & 1;
+      s[e] = ex2(fmaf(s[e], p.softcap_log2, -m_next[r]));
+      rs[r] += s[e];
+    }
+  } else if (interior && !p.has_softcap) {
+    // Every key counts and the logit is dot * scale * log2 e: take the
+    // max of the raw dots (the scale is positive and rounding is
+    // monotonic), then fold the scale into one FMA per exponent.
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e)
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_next[r] = fmaxf(m_run[r], mx[r] * p.scale_log2);
+      alpha[r] = ex2(m_run[r] - m_next[r]);
+    }
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int r = (e >> 1) & 1;
+      s[e] = ex2(fmaf(s[e], p.scale_log2, -m_next[r]));
+      rs[r] += s[e];
+    }
+  } else {
+    // Masked logits are -1e30 and p is multiplied by the mask, as the
+    // TPU kernel does: a row with no key yet keeps p = 0, never NaN.
+    uint32_t keep = 0;
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q_pos = q_start + row_base + 8 * (e >> 1);
+        const int k_pos = k0 + i * 8 + 2 * t + (e & 1);
+        const bool ok = interior || in_mask(p, q_pos, k_pos);
+        const float x = ok ? logit2_cap(p, s[4 * i + e]) : kMaskValue;
+        s[4 * i + e] = x;
+        keep |= (uint32_t)ok << (4 * i + e);
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_next[r] = fmaxf(m_run[r], mx[r]);
+      alpha[r] = ex2(m_run[r] - m_next[r]);
+    }
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int r = (e >> 1) & 1;
+      s[e] = ex2(s[e] - m_next[r]) * (((keep >> e) & 1u) ? 1.f : 0.f);
+      rs[r] += s[e];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+    l_run[r] = alpha[r] * l_run[r] + rs[r];
+    m_run[r] = m_next[r];
+  }
+}
+
 // Issues O += P . V for one tile (and commits it): P from registers, V
 // read MN-major from its [keys][Dh] tile at shared address `v_addr`.
 template <int D>
@@ -446,7 +574,9 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2],
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t dv = desc_sw128(v_addr + kk * 16 * 128, 64 * 128, 1024);
-    if constexpr (D == 128)
+    if constexpr (D == 256)
+      wgmma_rs_bf16_n256_tb(o, pa[kk], dv);
+    else if constexpr (D == 128)
       wgmma_rs_bf16_n128_tb(o, pa[kk], dv);
     else
       wgmma_rs_bf16_n64_tb(o, pa[kk], dv);
@@ -661,6 +791,189 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
+// bf16, Dh = 256: warp-specialised wgmma, Q, K and V loaded by TMA
+// ---------------------------------------------------------------------------
+
+struct Ws256Tile {
+  static constexpr int kConsumers = 2;  // warpgroups of 64 query rows
+  static constexpr int kThreads = (kConsumers + 1) * 128;  // + a producer
+  static constexpr int kBQ = 64 * kConsumers, kBK = 64;  // rows, keys a tile
+  static constexpr int kBoxBytes = 64 * 128;  // one [64 rows][64 cols] box
+  static constexpr int kOpBytes = 4 * kBoxBytes;  // 64 rows of 256: 32 KB
+  // barriers: [0] Q; [1 + s] K slot s full, [3 + s] V full, [5 + s] K
+  // empty, [7 + s] V empty
+  static constexpr int kBars = 9;
+  // 1 KB of slack to align the tiles to 1024 bytes (the swizzle atom);
+  // Q of every consumer, two K slots, two V slots
+  static constexpr size_t kSmem =
+      1024 + (size_t)(kConsumers + 4) * kOpBytes + 8 * kBars;
+};
+
+__global__ void __launch_bounds__(Ws256Tile::kThreads, 1)
+    flash_fwd_ws256(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using T = Ws256Tile;
+  constexpr int D = 256, NC = T::kConsumers, BQ = T::kBQ, BK = T::kBK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sQ + NC * T::kOpBytes;  // slot s at s * kOpBytes
+  unsigned char* sV = sK + 2 * T::kOpBytes;   // likewise
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sV + 2 * T::kOpBytes);
+  uint64_t* const q_full = bar;
+  uint64_t* const k_full = bar + 1;
+  uint64_t* const v_full = bar + 3;
+  uint64_t* const k_empty = bar + 5;
+  uint64_t* const v_empty = bar + 7;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.group;
+
+  // The key tiles the TPU kernel's relevance test keeps (for the CTA's
+  // BQ rows) form one interval; both consumers walk all of it.
+  const int n_tiles = (p.lk_eff + BK - 1) / BK;
+  int kt_lo = n_tiles, kt_hi = 0;
+  for (int kt = 0; kt < n_tiles; ++kt)
+    if (tile_relevant(p, kt * BK, BK, p.q_offset + q0, BQ)) {
+      kt_lo = min(kt_lo, kt);
+      kt_hi = kt + 1;
+    }
+  const int n = max(kt_hi - kt_lo, 0);
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int slot = 0; slot < 2; ++slot) {
+      mbar_init(&k_full[slot], 1);
+      mbar_init(&v_full[slot], 1);
+      mbar_init(&k_empty[slot], 4 * NC);  // one arrival per consumer warp
+      mbar_init(&v_empty[slot], 4 * NC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    // The producer warpgroup: one thread issues every copy, K_j and V_j
+    // into slot j % 2 once the consumers have released tile j - 2 there.
+    setmaxnreg_dec<24>();
+    if (tid == NC * 128) {
+      mbar_arrive_expect_tx(q_full, NC * T::kOpBytes);
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          tma_box(sQ + c * T::kOpBytes + x * T::kBoxBytes, &tm_q, q_full,
+                  x * 64, q0 + 64 * c, h, b, p.q_row_slot);
+      for (int j = 0; j < n; ++j) {
+        const int slot = j & 1, row = (kt_lo + j) * BK;
+        const uint32_t parity = ((j >> 1) + 1) & 1;  // release of j - 2
+        if (j >= 2) mbar_wait(&k_empty[slot], parity);
+        mbar_arrive_expect_tx(&k_full[slot], T::kOpBytes);
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          tma_box(sK + slot * T::kOpBytes + x * T::kBoxBytes, &tm_k,
+                  &k_full[slot], x * 64, row, kvh, b, p.k_row_slot);
+        if (j >= 2) mbar_wait(&v_empty[slot], parity);
+        mbar_arrive_expect_tx(&v_full[slot], T::kOpBytes);
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          tma_box(sV + slot * T::kOpBytes + x * T::kBoxBytes, &tm_v,
+                  &v_full[slot], x * 64, row, kvh, b, p.v_row_slot);
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows q0 + 64 wg .. + 63.
+    setmaxnreg_inc<240>();
+    const int lane = tid & 31, warp = (tid >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3;  // accumulator coordinates
+    const int wq0 = q0 + 64 * wg;
+    const int q_start = p.q_offset + wq0;
+    // This thread's rows of the carry: r = 0 -> row warp*16 + g, r = 1 -> +8.
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {kMaskValue, kMaskValue}, l_run[2] = {0.f, 0.f};
+    uint32_t pa[BK / 16][4];  // P of the previous tile, the A operand of P.V
+    const int row_base = warp * 16 + g;
+    const uint32_t q_addr = smem_u32(sQ + wg * T::kOpBytes);
+    mbar_wait(q_full, 0);  // always: no copy may outlive the CTA
+
+    // Tile j: S_j = q . k_j^T is issued, O is rescaled by tile j - 1's
+    // factor while S_j runs, and O += P_{j-1} . V_{j-1} is issued behind
+    // it, so the tensor cores run both while this warpgroup does tile
+    // j's softmax.  Each warp releases K_j once S_j has landed and
+    // V_{j-1} once P.V has.
+    float alpha[2] = {1.f, 1.f};
+    auto rescale = [&]() {  // only where a row's max moved (most tiles)
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+      }
+    };
+    for (int j = 0; j < n; ++j) {
+      mbar_wait(&k_full[j & 1], (j >> 1) & 1);
+      const uint32_t k_addr = smem_u32(sK + (j & 1) * T::kOpBytes);
+      float s[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * T::kBoxBytes + (kk & 3) * 32;
+        wgmma_ss_bf16_n64(s, desc_sw128(q_addr + off, 16, 1024),
+                          desc_sw128(k_addr + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      if (j > 0) {
+        const int jv = j - 1;
+        rescale();
+        mbar_wait(&v_full[jv & 1], (jv >> 1) & 1);
+        pv_product<D>(o, pa, smem_u32(sV + (jv & 1) * T::kOpBytes));
+        wgmma_wait<1>();  // S_j has landed; P.V may still run
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(&k_empty[j & 1]);
+
+      softmax_tile(p, s, m_run, l_run, alpha, q_start, row_base, t,
+                   (kt_lo + j) * BK);
+      // P_{j-1} . V_{j-1} has landed (unconditional, so the compiler sees
+      // a wait on every path from the product to the next rescale)
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (j > 0 && lane == 0) mbar_arrive(&v_empty[(j - 1) & 1]);
+      // S's accumulator is the A fragment of P.V: keys 16kk .. 16kk + 15
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    }
+    if (n > 0) {
+      const int jv = n - 1;
+      rescale();
+      mbar_wait(&v_full[jv & 1], (jv >> 1) & 1);
+      pv_product<D>(o, pa, smem_u32(sV + (jv & 1) * T::kOpBytes));
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+
+    // o / l, 0 where no key was in the mask (l == 0, acc == 0).
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
+                        ((long long)b * p.hq + h) * p.lq * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wq0 + row_base + 8 * r;
+      if (row >= p.lq) continue;
+      const float l = l_run[r] == 0.f ? 1.f : l_run[r];
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(og + (long long)row * D + i * 8 + 2 * t) =
+            pack_bf16(o[4 * i + 2 * r] / l, o[4 * i + 2 * r + 1] / l);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: CUDA-core FMAs
 // ---------------------------------------------------------------------------
 
@@ -845,20 +1158,28 @@ int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// The three maps of a wgmma design (Q, K, V), row slots set in p.
+template <int D>
+int make_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv, int b,
+              int hkv, Params* p) {
+  const int kv_rows = p->lk_eff > 0 ? p->lk_eff : 1;  // no tile is read at 0
+  int err = make_map(mq, p->q, D, p->lq, p->hq, b, p->q_sl, p->q_sh, p->q_sb,
+                     &p->q_row_slot);
+  if (!err)
+    err = make_map(mk, p->k, D, kv_rows, hkv, b, p->k_sl, p->k_sh, p->k_sb,
+                   &p->k_row_slot);
+  if (!err)
+    err = make_map(mv, p->v, D, kv_rows, hkv, b, p->v_sl, p->v_sh, p->v_sb,
+                   &p->v_row_slot);
+  return err;
+}
+
 template <int D>
 int launch_wgmma(int b, int hkv, const Params& p0, cudaStream_t s) {
   using T = WgTile<D>;
   Params p = p0;
   CUtensorMap mq, mk, mv;
-  const int kv_rows = p.lk_eff > 0 ? p.lk_eff : 1;  // no tile is read at 0
-  int err = make_map(&mq, p.q, D, p.lq, p.hq, b, p.q_sl, p.q_sh, p.q_sb,
-                     &p.q_row_slot);
-  if (!err)
-    err = make_map(&mk, p.k, D, kv_rows, hkv, b, p.k_sl, p.k_sh, p.k_sb,
-                   &p.k_row_slot);
-  if (!err)
-    err = make_map(&mv, p.v, D, kv_rows, hkv, b, p.v_sl, p.v_sh, p.v_sb,
-                   &p.v_row_slot);
+  const int err = make_maps<D>(&mq, &mk, &mv, b, hkv, &p);
   if (err) return err;
   auto kernel = flash_fwd_wgmma<D>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -866,6 +1187,21 @@ int launch_wgmma(int b, int hkv, const Params& p0, cudaStream_t s) {
   if (e != cudaSuccess) return (int)e;
   dim3 grid((p.lq + T::kBQ - 1) / T::kBQ, p.hq, b);
   kernel<<<grid, kThreads, T::kSmem, s>>>(mq, mk, mv, p);
+  return (int)cudaGetLastError();
+}
+
+int launch_ws256(int b, int hkv, const Params& p0, cudaStream_t s) {
+  using T = Ws256Tile;
+  Params p = p0;
+  CUtensorMap mq, mk, mv;
+  const int err = make_maps<256>(&mq, &mk, &mv, b, hkv, &p);
+  if (err) return err;
+  auto kernel = flash_fwd_ws256;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((p.lq + T::kBQ - 1) / T::kBQ, p.hq, b);
+  kernel<<<grid, T::kThreads, T::kSmem, s>>>(mq, mk, mv, p);
   return (int)cudaGetLastError();
 }
 
@@ -925,7 +1261,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       case 32: return launch_bf16<32, 64>(b, p, s);
       case 64: return launch_wgmma<64>(b, hkv, p, s);
       case 128: return launch_wgmma<128>(b, hkv, p, s);
-      case 256: return launch_bf16<256, 32>(b, p, s);
+      case 256: return launch_ws256(b, hkv, p, s);
     }
   } else {
     switch (d) {

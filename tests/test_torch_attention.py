@@ -62,6 +62,10 @@ def _j(*xs, dtype=jnp.float32):
     (1, 2, 2, 160, 64, True, None, 50.0),
     (1, 4, 2, 96, 64, False, None, None),
     (1, 2, 1, 100, 32, True, 24, 30.0),
+    # gemma2's head (Dh 256, softcap 50, GQA 2:1) at a ragged L, with a
+    # window that masks and without one
+    (1, 4, 2, 100, 256, True, 48, 50.0),
+    (2, 2, 1, 100, 256, True, None, 50.0),
 ])
 def test_flash_plain_matches_jax_kernel(b, hq, hkv, l, dh, causal, window,
                                         softcap):
@@ -99,6 +103,48 @@ def test_flash_query_chunk_matches_jax_kernel(lq, lk, q_offset, window):
                                    **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
                                atol=2e-3)
+
+
+@pytest.mark.parametrize("lq,lk,q_offset,window", [
+    (40, 140, 100, None),   # the last 40 of 140 keys
+    (64, 192, 128, 48),     # the same with a sliding window
+])
+def test_flash_query_chunk_at_dh256_matches_jax_kernel(lq, lk, q_offset,
+                                                       window):
+    """A query chunk (q_offset > 0, Lq < Lk) at gemma2's head: Dh 256,
+    softcap 50, GQA 2:1."""
+    q, k, v = _qkv(1, 4, 2, lq, 256, seed=lk + 1, lk=lk)
+    kw = dict(causal=True, window=window, softcap=50.0, q_offset=q_offset)
+    got = ops.flash_attention(*_t(q, k, v), **kw)
+    want = ref_ops.flash_attention(*_j(q, k, v), block_q=64, block_k=64,
+                                   **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("lq,lk,q_offset,window,softcap,gain", [
+    (100, 100, 0, 48, 50.0, 12.0),      # gemma2's cap, logits ~N(0, 12^2)
+    (100, 100, 0, None, 50.0, 12.0),
+    (100, 100, 0, 48, 5.0, 1.0),        # a cap of 5 on N(0, 1) logits
+    (40, 140, 100, None, 50.0, 12.0),   # a query chunk
+    (64, 192, 128, 48, 5.0, 1.0),
+])
+def test_flash_softcap_reached_at_dh256_matches_jax_kernel(
+        lq, lk, q_offset, window, softcap, gain):
+    """gemma2's head (Dh 256, GQA 2:1) with logits that reach the
+    softcap: on N(0, 1) logits a cap of 50 moves none by more than
+    ~0.01, so q is scaled by ``gain`` (or the cap is 5).  The cap must
+    move the result by far more than the tolerance."""
+    q, k, v = _qkv(1, 4, 2, lq, 256, seed=lk + 2, lk=lk)
+    kw = dict(scale=gain * 256 ** -0.5, causal=True, window=window,
+              q_offset=q_offset)
+    got = ops.flash_attention(*_t(q, k, v), softcap=softcap, **kw)
+    want = ref_ops.flash_attention(*_j(q, k, v), block_q=64, block_k=64,
+                                   softcap=softcap, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
+    uncapped = ops.flash_attention(*_t(q, k, v), **kw)
+    assert (uncapped - got).abs().max().item() > 0.1
 
 
 def test_flash_kv_len_masks_the_key_suffix():

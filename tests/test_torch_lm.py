@@ -278,11 +278,10 @@ def test_registered_config_equals_jax(arch):
             assert type(got).__module__.startswith("repro_torch.")
 
 
-def test_registry_resolves_llama_and_names_the_roadmap_for_the_rest():
+def test_registry_resolves_every_arch_to_the_port():
     """Every arch of the JAX package's registry resolves to a config
-    module of the port, none left to a ROADMAP item (the name is from
-    when only llama3.2-3b resolved; it is kept so that the test keeps
-    its history)."""
+    module of the port, llama3.2-3b's configs equal to the JAX
+    package's, and an unknown arch raises KeyError."""
     for name in ("config", "smoke_config"):
         got = getattr(configs.get("llama3.2-3b"), name)
         want = getattr(ref_configs.get("llama3.2-3b"), name)

@@ -283,11 +283,9 @@ def test_registry_configs_and_param_counts_equal_the_jax_package(arch):
     assert steps.RECSYS_MODULES[spec.smoke_config.name] is MODULES[arch][0]
 
 
-def test_gnn_arch_still_raises_naming_its_item():
-    """The GNN arch resolves to the port's own config module (the name
-    is the refusal this test held until mace was ported; it is kept so
-    that the test keeps its history; ``tests/test_torch_gnn.py`` holds
-    the model)."""
+def test_gnn_arch_resolves_to_the_port():
+    """The GNN arch resolves to the port's own config module
+    (``tests/test_torch_gnn.py`` holds the model)."""
     spec = configs.get("mace")
     assert spec.family == "gnn"
     assert spec.module == "repro_torch.configs.mace"

@@ -364,13 +364,11 @@ def test_a_captured_step_takes_new_inputs_into_its_buffers():
     ("mace", "minibatch_lg", "gnn_train_sampled"),
     ("mace", "molecule", "gnn_train_batched"),
 ])
-def test_unported_kinds_raise_naming_their_roadmap_item(arch, shape_id, item):
-    """The GNN kinds build and step (the name is the refusal this test
-    held until they were ported; it is kept so that the test keeps its
-    history): ``build_cell`` gives
-    the cell of its kind, uncut, and one step (lr 0) returns a finite
-    loss with the params' bits unchanged (``tests/test_torch_gnn.py``
-    holds the steps to the JAX package's)."""
+def test_gnn_kinds_build_and_step(arch, shape_id, item):
+    """The GNN kinds build and step: ``build_cell`` gives the cell of its
+    kind, uncut, and one step (lr 0) returns a finite loss with the
+    params' bits unchanged (``tests/test_torch_gnn.py`` holds the steps
+    to the JAX package's)."""
     cell = steps.build_cell(arch, shape_id, smoke=True, device="cpu")
     assert cell.meta["kind"] == item and cell.meta["reduced"] == []
     params = [t.clone() for t in tree_lib.leaves(cell.args[0])]
@@ -383,9 +381,9 @@ def test_unported_kinds_raise_naming_their_roadmap_item(arch, shape_id, item):
 @pytest.mark.parametrize("shape_id,n_shards", [("pod_16m", None),
                                                ("edge_1k", 4)])
 def test_ragdb_cell_runs_on_the_cpu(shape_id, n_shards):
-    """The ragdb_retrieve cells (once the unported cases above): the
-    SMOKE cell over ``docs_per_device × n_shards`` docs, gemm and kernel
-    legs, gives the JAX package's oracle's ids on the same arrays."""
+    """The ragdb_retrieve cells: the SMOKE cell over
+    ``docs_per_device × n_shards`` docs, gemm and kernel legs, gives the
+    JAX package's oracle's ids on the same arrays."""
     from repro.core.retrieval import single_device_reference as ref_oracle
 
     for use_kernel in (False, True):
