@@ -12,7 +12,10 @@ Phases (any failure raises and the script exits non-zero):
    whether its SASS holds HGMMA (wgmma), UTMALDG (TMA), HMMA
    (mma.sync) and USETMAXREG (setmaxnreg); the wgmma designs must hold
    the first two, the warp-specialised Dh=256 flash design the fourth
-   too, and the top-k radix select's four kernels must be there.
+   too, MLA's 192/128 flash design no spill, and the top-k radix
+   select's four kernels must be there; then each flash design's
+   dynamic shared memory and threads per CTA and the CTAs that fit on
+   an SM (MLA's design must fit two).
 2. Kernels against their plain versions, on the card: the fused HSF
    top-k at the serving shape (N=65,536 docs, D=4,096, W=128 signature
    words, B=64 queries, k=16) and at its edges (ragged N, n_valid < N,
@@ -31,13 +34,17 @@ Phases (any failure raises and the script exits non-zero):
    rows, non-causal, B=2 contiguous and transposed, GQA 1:1 and 2:1)
    and at phase 11's model
    shapes (gemma2: Dh=256, softcap 50, window 4,096 at L=512 and 8,192;
-   gemma3: window 1,024 at L=2,048; qwen3: GQA 8:1; deepseek's MLA heads
-   of 192/128 zero-padded to 256, against plain attention over the
+   gemma3: window 1,024 at L=2,048; qwen3: GQA 8:1), at deepseek's MLA
+   heads unpadded (q/k 192, v 128, the design of their own: the serving
+   shape laid out as ``models/mla.apply`` gives it, q and k contiguous
+   and v a transposed view; ragged L=700, Lq=1, kv_len ending mid-tile,
+   q_offset with Lq < Lk, B=2 transposed, fully masked rows, L=8,192),
+   and through the route ``mla.apply`` takes (one launch on the
    unpadded heads), and at Dh=256 with logits that reach the softcap
    (q scaled by 12 under a cap of 50, at L=512 and gemma2's 8,192, or
    a cap of 5; with and without a window), each checked to move the
-   result by over ten times its atol; bf16 Dh=256 is held at an atol
-   of at most a tenth of the plain result's rms; then the
+   result by over ten times its atol; bf16 Dh=256 and MLA's heads are
+   held at an atol of at most a tenth of the plain result's rms; then the
    single-query HSF score at the serving shape in f32 and bf16 and at
    its edges (ragged N, D without 16-byte rows, W=3, n = 0, the boost
    exactly β); then the top-k radix select at N=65,536 (one launch) and
@@ -161,7 +168,10 @@ Phases (any failure raises and the script exits non-zero):
    replay's device idle share, the MoE layers' grouped products against
    their bound at T = 512 and 1, the flash kernel at the arch's shape
    against SDPA and its bound (gemma2's also without its softcap: the
-   softcap's share), and the peak allocated bytes.
+   softcap's share; deepseek's at L = 512 and 8,192 beside the route
+   that padded its heads to 256, with and without the pad copies), and
+   the peak allocated bytes; deepseek's prefill is printed beside the
+   padded route's.
 12. The sharded retrieval planes, on logical shards of the one card:
    (a) ``build_sharded_retrieve`` on ragdb FULL (dim 4,096, W = 128,
    k = 16, B = 64) at pod_16m's 65,536 docs a shard, S ∈ {1, 4}, whole
@@ -290,6 +300,10 @@ LOGIT_REL_TOL = 2e-2
 NOISE_FACTOR = 1.5
 # deepseek-v2-lite's MLA prefill heads: q/k nope 128 + rope 64, v 128
 MLA_HEADS = dict(h=16, qk=192, v=128)
+# deepseek-v2-lite's 512-bucket prefill (eager, replayed; ms) when its
+# MLA heads were zero-padded to 256 for the Dh=256 flash design: one
+# NVIDIA H100 80GB HBM3 at 700 W, this script's phase 11(d)
+MLA_PADDED_PREFILL_MS = (77.729, 25.527)
 
 
 @contextlib.contextmanager
@@ -315,19 +329,22 @@ def _log(msg: str) -> None:
 # select's kernels must be there (the one-launch cluster, the two reads
 # of the multi-launch path and its cluster over the candidate buffer)
 _SASS_REQUIRED = {
-    "flash_fwd_wgmma<64>": ("HGMMA", "UTMALDG"),
-    "flash_fwd_wgmma<128>": ("HGMMA", "UTMALDG"),
-    "flash_fwd_ws256": ("HGMMA", "UTMALDG", "USETMAXREG"),
+    "flash_fwd_wgmma<64, 64>": ("HGMMA", "UTMALDG"),
+    "flash_fwd_wgmma<128, 128>": ("HGMMA", "UTMALDG"),
+    "flash_fwd_wgmma<192, 128>": ("HGMMA", "UTMALDG"),
+    "flash_fwd_ws<256, 256>": ("HGMMA", "UTMALDG", "USETMAXREG"),
     "hsf_topk_tiles": ("HGMMA", "UTMALDG"),
     "topk_cluster<1>": (),
     "topk_cluster<0>": (),
     "topk_hist<1>": (),
     "topk_filter<1>": (),
 }
+# instantiations that must not spill
+_SASS_NO_SPILL = ("flash_fwd_wgmma<192, 128>",)
 
 
 def _kernel_label(mangled: str) -> str:
-    """``flash_fwd_wgmma<128>`` from an anonymous-namespace mangled name
+    """``flash_fwd_wgmma<128, 128>`` from an anonymous-namespace mangled name
     (template arguments: integers, names and builtin types)."""
     m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
     if not m:
@@ -397,9 +414,28 @@ def _sass_report(build, reports):
                      f"{op} {'yes' if v else 'no'}" for op, v in has.items()))
             for op in _SASS_REQUIRED.get(label, ()):
                 assert has[op], f"{label} holds no {op}"
+            assert label not in _SASS_NO_SPILL or spill == 0, (label, spill)
             seen.add(label)
     missing = set(_SASS_REQUIRED) - seen
     assert not missing, f"no SASS found for {sorted(missing)}"
+
+
+def _flash_designs(torch, fa_ops):
+    """Each flash design's dynamic shared memory and threads per CTA and
+    the CTAs that fit on one SM of this card; MLA's 192/128 design must
+    fit two (one warpgroup each, overlapping one's softmax with the
+    other's products)."""
+    designs = [(dt, d, d) for dt in (torch.bfloat16, torch.float32)
+               for d in fa_ops.HEAD_DIMS]
+    designs += [(dt, *pair) for dt, pairs in fa_ops.PAIR_DESIGNS.items()
+                for pair in pairs]
+    for dt, dqk, dv in designs:
+        info = fa_ops.design(dt, dqk, dv)
+        _log(f"  flash design {str(dt)[6:]:8s} q/k {dqk:3d} v {dv:3d}: "
+             f"{info['smem']:6d} B dynamic smem, {info['threads']} threads "
+             f"a CTA, {info['ctas_per_sm']} CTA(s) an SM")
+        if (dt, dqk, dv) == (torch.bfloat16, MLA_HEADS["qk"], MLA_HEADS["v"]):
+            assert info["ctas_per_sm"] >= 2, info
 
 
 # ---------------------------------------------------------------------------
@@ -987,16 +1023,22 @@ def phase_bag_kernel(torch, bag_ops, bag_ref, emb, rbase, pipeline):
 
 def _attn_operands(torch, gen, b, hq, hkv, lq, lk, dh, dtype,
                    strided=False):
-    """q, k, v from the standard normal; ``strided`` makes them the
-    [B, L, H, Dh] → [B, H, L, Dh] transposed views the projections
-    give the kernel."""
-    def one(h, l):
-        if strided:
-            t = torch.randn(b, l, h, dh, device="cuda", generator=gen)
+    """q, k, v from the standard normal; ``dh`` is one head size or
+    (q/k's, v's).  ``strided`` makes them the [B, L, H, Dh] → [B, H, L,
+    Dh] transposed views the projections give the kernel; ``"mla"`` lays
+    them out as ``models/mla.apply`` does: q and k contiguous (nope and
+    rope heads concatenated), v a transposed view."""
+    dqk, dv = (dh, dh) if isinstance(dh, int) else dh
+
+    def one(h, l, d, view):
+        if view:
+            t = torch.randn(b, l, h, d, device="cuda", generator=gen)
             return t.to(dtype).transpose(1, 2)
-        return torch.randn(b, h, l, dh, device="cuda", generator=gen) \
+        return torch.randn(b, h, l, d, device="cuda", generator=gen) \
             .to(dtype)
-    return one(hq, lq), one(hkv, lk), one(hkv, lk)
+    qk_view = strided is True
+    return (one(hq, lq, dqk, qk_view), one(hkv, lk, dqk, qk_view),
+            one(hkv, lk, dv, bool(strided)))
 
 
 def _flash_cases(torch):
@@ -1004,6 +1046,7 @@ def _flash_cases(torch):
     strided, options."""
     bf16, f32 = torch.bfloat16, torch.float32
     sv = ATTN_SERVE
+    mh, mla = MLA_HEADS["h"], (MLA_HEADS["qk"], MLA_HEADS["v"])
     return [
         # name, (b, hq, hkv, lq, lk, dh), dtype, strided, options
         ("serving shape", (sv["b"], sv["hq"], sv["hkv"], sv["l"], sv["l"],
@@ -1089,15 +1132,33 @@ def _flash_cases(torch):
         ("gemma2 L=8192 softcap 50 reached", (1, 16, 8, 8192, 8192, 256),
          bf16, True, {"window": 4096, "softcap": 50.0, "q_gain": 12.0,
                       "cap_acts": True}),
+        # deepseek's MLA heads unpadded (the 192/128 design): the serving
+        # shape laid out as mla.apply gives it, then its edges
+        ("MLA serving shape", (1, mh, mh, sv["l"], sv["l"], mla), bf16,
+         "mla", {}),
+        ("MLA Lq=700 (ragged query tile)", (1, mh, mh, 700, 700, mla), bf16,
+         "mla", {}),
+        ("MLA Lq=1 q_offset=610 Lk=611", (1, mh, mh, 1, 611, mla), bf16,
+         "mla", {"q_offset": 610}),
+        ("MLA kv_len=555 < Lk=611", (1, mh, mh, 100, 611, mla), bf16, "mla",
+         {"q_offset": 511, "kv_len": 555}),
+        ("MLA q_offset=512 Lq=100 < Lk=612", (1, mh, mh, 100, 612, mla),
+         bf16, False, {"q_offset": 512}),
+        ("MLA B=2 transposed", (2, mh, mh, 256, 256, mla), bf16, True, {}),
+        ("MLA fully masked rows (q_offset=-40)", (1, 4, 4, 200, 200, mla),
+         bf16, "mla", {"q_offset": -40}),
+        ("MLA L=8192", (1, mh, mh, ATTN_LONG_L, ATTN_LONG_L, mla), bf16,
+         "mla", {}),
     ]
 
 
 def phase_flash_kernel(torch, fa_ops, fa_ref, cases=None):
     """Flash kernel against its plain version over ``cases`` (default:
-    all of ``_flash_cases``) and MLA's padded heads; returns the largest
-    |Δ| and {case: (max |Δ|, atol, rms |Δ|)}.  bf16 Dh=256 cases are held at an atol
-    of at most a tenth of the plain result's rms (at L=8,192 a typical
-    |o| is ~0.03, under BF16_TOL); a case with ``q_gain`` scales q by it,
+    all of ``_flash_cases``, then MLA's routes); returns the largest |Δ|
+    and {case: (max |Δ|, atol, rms |Δ|)}.  bf16 Dh=256 and MLA cases are
+    held at an atol of at most a tenth of the plain result's rms (at
+    L=8,192 a typical |o| is ~0.03, under BF16_TOL); a case with
+    ``q_gain`` scales q by it,
     and one with ``cap_acts`` must differ from the uncapped result by
     over ten times its atol (the softcap reaches its logits)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1112,12 +1173,13 @@ def phase_flash_kernel(torch, fa_ops, fa_ref, cases=None):
                                  strided)
         if gain is not None:
             q = q * gain  # keeps the transposed strides
-        kw = {"scale": dh ** -0.5, "causal": True, **opts}
+        dqk = dh if isinstance(dh, int) else dh[0]
+        kw = {"scale": dqk ** -0.5, "causal": True, **opts}
         got = fa_ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         want = fa_ref.attention_ref(q, k, v, **kw)
         tol = atol = F32_TOL if dtype == f32 else BF16_TOL
-        scaled = dtype != f32 and dh == 256
+        scaled = dtype != f32 and (dh == 256 or not isinstance(dh, int))
         if scaled:
             rms = want.float().square().mean().sqrt().item()
             atol = min(BF16_TOL, 0.1 * rms)
@@ -1148,31 +1210,31 @@ def phase_flash_kernel(torch, fa_ops, fa_ref, cases=None):
             _log(f"  flash == plain: {name:34s} {str(dtype)[6:]:8s} "
                  f"max |Δ| {err:.3e} (tol {tol:g})")
         del q, k, v, got, want, delta
-    mla_err = _check_mla_padding(torch, fa_ops, fa_ref, gen)
-    errs["deepseek MLA padded"] = (mla_err, BF16_TOL, None)
-    return max(worst, mla_err), errs
+    if cases is None:
+        err = _check_mla_route(torch, fa_ops, fa_ref, gen)
+        errs["deepseek MLA route"] = (err, BF16_TOL, None)
+        worst = max(worst, err)
+    return worst, errs
 
 
-def _mla_operands(torch, gen, l, strided=True):
-    """deepseek-v2-lite's prefill attention operands at L = l: q, k
-    [1, 16, l, 192] and v [1, 16, l, 128], bf16, transposed views."""
-    m = MLA_HEADS
-    def one(dh):
-        t = torch.randn(1, l, m["h"], dh, device="cuda", generator=gen)
-        return t.to(torch.bfloat16).transpose(1, 2)
-    return one(m["qk"]), one(m["qk"]), one(m["v"])
-
-
-def _check_mla_padding(torch, fa_ops, fa_ref, gen):
-    """MLA's heads zero-padded to 256 through the kernel (the path
-    ``models/mla.apply`` takes) against plain attention over the
-    unpadded 192/128 heads; returns the largest |Δ|."""
+def _check_mla_route(torch, fa_ops, fa_ref, gen):
+    """deepseek-v2-lite's prefill attention at the serving shape through
+    ``models/mla.padded_attention`` as ``mla.apply`` calls it in bf16
+    (its heads as they are: one launch of the 192/128 design) against
+    plain attention; returns the max |Δ|."""
     from repro_torch.models import mla
 
-    q, k, v = _mla_operands(torch, gen, ATTN_SERVE["l"])
-    scale = MLA_HEADS["qk"] ** -0.5
+    m = MLA_HEADS
+    q, k, v = _attn_operands(torch, gen, 1, m["h"], m["h"], ATTN_SERVE["l"],
+                             ATTN_SERVE["l"], (m["qk"], m["v"]),
+                             torch.bfloat16, "mla")
+    scale = m["qk"] ** -0.5
+    cfg = mla.MLAConfig(nope_head_dim=m["qk"] - 64, rope_head_dim=64,
+                        v_head_dim=m["v"])
+    head = mla.padded_head_dim(cfg, torch.bfloat16)
+    assert head is None, head
     fa_ops.reset_counts()
-    got = mla.padded_attention(q, k, v, scale=scale, head_dim=256,
+    got = mla.padded_attention(q, k, v, scale=scale, head_dim=head,
                                backend="kernel")
     torch.cuda.synchronize()
     assert fa_ops.counts == {"launches": 1, "plain": 0}, fa_ops.counts
@@ -1180,10 +1242,10 @@ def _check_mla_padding(torch, fa_ops, fa_ref, gen):
     assert got.shape == want.shape == v.shape and torch.isfinite(got).all()
     err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
-                               atol=BF16_TOL, msg="MLA padded heads")
-    _log(f"  flash == plain: {'deepseek MLA 192/128 padded to 256':34s} "
-         f"bfloat16 max |Δ| {err:.3e} (tol {BF16_TOL:g}; plain over the "
-         "unpadded heads)")
+                               atol=BF16_TOL, msg="MLA route")
+    _log(f"  flash == plain: {'deepseek MLA route (mla.apply)':34s} "
+         f"bfloat16 max |Δ| {err:.3e} (tol {BF16_TOL:g}; the heads as "
+         "they are, one launch)")
     return err
 
 
@@ -3254,32 +3316,28 @@ def _pairs(l, window=None):
 
 
 def _time_attention(torch, fa_ops, fa_ref, label, heads, l, opts,
-                    mla_pad=None):
+                    padded=None):
     """Kernel, plain version, SDPA (causal, without a softcap or window,
     which it lacks) and the bound for one model's prefill attention at
-    L = l.  heads = (hq, hkv, d_qk, d_v); ``mla_pad`` pads the heads to
-    that size first, as ``models/mla.apply`` does (the padding copies
-    are timed with the kernel).  With a softcap, the kernel is also
-    timed without it: the softcap's share of its time."""
+    L = l.  heads = (hq, hkv, d_qk, d_v); unequal widths are laid out as
+    ``models/mla.apply`` gives them.  ``padded`` also times the route
+    that zero-pads the heads to that size first (``padded_ms``, the
+    padding copies timed with the kernel; ``padded_alone_ms``, the
+    kernel on operands padded beforehand).  With a softcap, the kernel
+    is also timed without it: the softcap's share of its time."""
     import torch.nn.functional as F
 
     from repro_torch.models import mla
 
     hq, hkv, dqk, dv = heads
     gen = torch.Generator(device="cuda").manual_seed(13)
-    q, k, v = _attn_operands(torch, gen, 1, hq, hkv, l, l, dqk,
-                             torch.bfloat16, strided=True)
-    if dv != dqk:
-        v = torch.randn(1, l, hkv, dv, device="cuda", generator=gen) \
-            .to(torch.bfloat16).transpose(1, 2)
+    q, k, v = _attn_operands(torch, gen, 1, hq, hkv, l, l, (dqk, dv),
+                             torch.bfloat16,
+                             strided=True if dv == dqk else "mla")
     scale = opts.get("scale", dqk ** -0.5)
     kw = {k_: v_ for k_, v_ in opts.items() if k_ != "scale"}
-    if mla_pad:
-        kernel = lambda: mla.padded_attention(  # noqa: E731
-            q, k, v, scale=scale, head_dim=mla_pad, backend="kernel")
-    else:
-        kernel = lambda: fa_ops.flash_attention(  # noqa: E731
-            q, k, v, scale=scale, **kw)
+    kernel = lambda: fa_ops.flash_attention(  # noqa: E731
+        q, k, v, scale=scale, **kw)
     plain = lambda: fa_ref.attention_ref(q, k, v, scale=scale, **kw)  # noqa: E731
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, is_causal=True, scale=scale, enable_gqa=True)
@@ -3308,13 +3366,19 @@ def _time_attention(torch, fa_ops, fa_ref, label, heads, l, opts,
         out["softcap_share"] = 1 - out["no_softcap_ms"] / out["ms"]
         extra = (f" (without the softcap {out['no_softcap_ms']:.4f} ms: "
                  f"the softcap {out['softcap_share']:.1%} of the time)")
-    if mla_pad:
-        qp, kp, vp = (F.pad(t, (0, mla_pad - t.shape[-1])) for t in (q, k, v))
+    if padded:
+        route = lambda: mla.padded_attention(  # noqa: E731
+            q, k, v, scale=scale, head_dim=padded, backend="kernel")
+        qp, kp, vp = (F.pad(t, (0, padded - t.shape[-1])) for t in (q, k, v))
         bare = lambda: fa_ops.flash_attention(qp, kp, vp, scale=scale)  # noqa: E731
+        route()
         bare()
-        out["kernel_alone_ms"] = _queued_ms(torch, bare, reps, 5)
-        extra = (f" (the kernel alone on operands padded beforehand "
-                 f"{out['kernel_alone_ms']:.4f} ms)")
+        out["padded_ms"] = _queued_ms(torch, route, reps, 5)
+        out["padded_alone_ms"] = _queued_ms(torch, bare, reps, 5)
+        again = _queued_ms(torch, kernel, reps, 5)
+        extra = (f" (again {again:.4f} ms; heads padded to {padded}: "
+                 f"{out['padded_ms']:.4f} ms with the pad copies, "
+                 f"{out['padded_alone_ms']:.4f} ms the kernel alone)")
     _log(f"  flash, {label} L={l}: kernel {out['ms']:.4f} ms{extra}, plain "
          f"{out['plain_ms']:.4f} ms, library SDPA {out['library_ms']:.4f} ms "
          f"(causal only: no softcap or window); bound {out['bound_ms']:.4f} "
@@ -3326,14 +3390,17 @@ def _time_attention(torch, fa_ops, fa_ref, label, heads, l, opts,
 
 def _family_flash(torch, fa_ops, fa_ref, arch, cfg):
     """The flash kernel at the arch's prefill shape (the 512 bucket);
-    gemma2 also at 8,192, where its window of 4,096 masks."""
+    gemma2 also at 8,192, where its window of 4,096 masks, and deepseek
+    (MLA's 192/128 heads) also at 8,192, each beside its heads padded
+    to 256."""
     l = ATTN_SERVE["l"]
     if cfg.mla is not None:
         m = cfg.mla
         heads = (cfg.n_heads, cfg.n_heads, m.qk_head_dim, m.v_head_dim)
-        return {f"{arch} L={l}": _time_attention(
-            torch, fa_ops, fa_ref, f"{arch} 192/128 padded to 256", heads, l,
-            {"scale": cfg.attn_scale}, mla_pad=256)}
+        return {f"{arch} L={length}": _time_attention(
+            torch, fa_ops, fa_ref, f"{arch} {m.qk_head_dim}/{m.v_head_dim}",
+            heads, length, {"scale": cfg.attn_scale}, padded=256)
+            for length in (l, ATTN_LONG_L)}
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim)
     opts = {"scale": cfg.attn_scale}
     if cfg.attn_softcap is not None:
@@ -3566,9 +3633,14 @@ def _lm_family(torch, T, steps, serve, fa_ops, fa_ref, arch, ctx):
         idle = _profile(torch, replay, replay_ms,
                         f"{arch} replayed {name} step", calls=3)
         out[name] = (eager_ms, replay_ms, idle)
+        before = ""
+        if cfg.mla is not None and name == "prefill":
+            before = (f"; with the MLA heads padded to 256: eager "
+                      f"{MLA_PADDED_PREFILL_MS[0]:.3f} ms, replay "
+                      f"{MLA_PADDED_PREFILL_MS[1]:.3f} ms")
         _log(f"  (d) {arch} {name} at the 512 bucket: eager {eager_ms:.3f} "
              f"ms, replay {replay_ms:.3f} ms (CUDA events, median of {runs}, "
-             f"in turns {', '.join(f'{t:.3f}' for t in pairs)})")
+             f"in turns {', '.join(f'{t:.3f}' for t in pairs)}){before}")
     if moe_layer is not None:
         out["grouped"] = {t: _grouped_timing(torch, moe, cfg, moe_layer, t)
                           for t in (512, 1)}
@@ -5092,6 +5164,7 @@ def main(argv=None) -> int:
                  f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
                  f"{spill} bytes of spills")
         _sass_report(build, reports)
+        _flash_designs(torch, fa_ops)
 
     with _phase("phase 2: kernels against their plain versions on the card"):
         max_err = phase_kernel(torch, np, ops, ref)

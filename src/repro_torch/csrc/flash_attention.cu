@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernel `flash_attention_pallas`
 // (src/repro/kernels/flash_attention/flash_attention.py, body
 // `_flash_kernel`).  For q [B, Hq, Lq, Dh] against k, v [B, Hkv, Lk, Dh]
-// (bf16 or f32, the same type in and out) it computes, row by row,
+// (bf16 or f32, the same type in and out; in bf16 v and the output may
+// also be 128 wide against q and k of 192, MLA's heads) it computes, row
+// by row,
 //
 //     s = (q . k) * scale;  s = cap * tanh(s / cap)          (softcap)
 //     mask = k_pos < kv_len  and (causal -> q_pos >= k_pos)
@@ -25,17 +27,19 @@
 // turn).  At L = 8,192 it does 412 GFLOP (0.42 ms) against 134 MB
 // (0.04 ms): bound by operations, so the products go to the tensor cores.
 //
-// Which design serves which call is fixed by (dtype, Dh), never by a
-// fallback at run time:
+// Which design serves which call is fixed by (dtype, Dh of q/k, Dh of v),
+// never by a fallback at run time:
 //
-// bf16, Dh = 64 and 128 (`flash_fwd_wgmma`): one warpgroup per CTA owns
+// bf16, Dh = 64 and 128, and q/k 192 with v 128 (`flash_fwd_wgmma<DQK,
+//   DV>`; the last is MLA's heads unpadded): one warpgroup per CTA owns
 //   64 query rows of one head (a 512-token prefill: 8 x 24 = 192 CTAs, at
 //   two per SM all resident on the 132 SMs).  Thread 0 loads Q, K and V
 //   by TMA (4-D maps over the operands' real strides, 128-byte swizzle,
 //   64-column boxes; K/V rows past kv_len arrive as zeros) into two K and
 //   two V slots, signalled on mbarriers, one tile ahead.  S = q.k^T is
-//   `wgmma` m64n64k16 with both operands in shared memory; O += P.V is
-//   `wgmma` m64nDhk16 with P from registers (S's accumulator packed to
+//   `wgmma` m64n64k16 with both operands in shared memory, DQK / 16
+//   k-steps across DQK / 64 boxes; O += P.V is
+//   `wgmma` m64nDVk16 with P from registers (S's accumulator packed to
 //   bf16 pairs is the A fragment) and V read MN-major from its [keys][Dh]
 //   tile, never transposed.  S_j is issued, then P_{j-1}.V_{j-1} behind
 //   it, so the tensor cores run P.V while the warpgroup does tile j's
@@ -45,9 +49,17 @@
 //   max is taken over the raw dots and the scale rides in one FMA per
 //   exponent.  Not warp-specialised (one warpgroup issues its own TMA);
 //   two CTAs per SM overlap one's softmax with the other's products.
-// bf16, Dh = 256 (`flash_fwd_ws256`; gemma2's heads, and MLA's 192/128
-//   zero-padded by models/mla.py): warp-specialised.  At this width O's
-//   64 x 256 f32 carry alone is 128 registers a thread and one CTA of
+//   At 192/128 the CTA holds Q (24 KB), two K slots (24 KB each) and two
+//   V slots (16 KB each): 105 KB with the alignment slack, so two still
+//   fit on an SM, where padding to 256 took the Dh 256 design's 192 KB
+//   and 128-row CTAs (one an SM, 64 CTAs for a 512-token prefill: 4 x
+//   16 heads) and 1.6x the products.  deepseek-v2-lite's 512-token
+//   prefill (16 heads) moves 10.5 MB (3.1 us) and does 1.3 GFLOP (1.4
+//   us): 128 CTAs, bound by bytes and latency; at L = 8,192, 344 GFLOP
+//   (0.35 ms), bound by operations.
+// bf16, Dh = 256 (`flash_fwd_ws<256, 256>`; gemma2's heads): warp-
+//   specialised.  At this width O's 64 x 256 f32 carry alone is 128
+//   registers a thread and one CTA of
 //   Q + two K/V stages takes 192 KB of shared memory, so one CTA per SM
 //   has to hide its own latency.  A producer warpgroup (`setmaxnreg`
 //   down to 24 registers) issues every TMA load (the maps and boxes of
@@ -418,19 +430,23 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, Dh = 64 and 128: wgmma, with Q, K and V loaded by TMA
+// bf16, Dh = 64 and 128, and q/k 192 with v 128: wgmma, with Q, K and V
+// loaded by TMA
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int DQK, int DV>
 struct WgTile {
   static constexpr int kBQ = 64, kBK = 64;  // query rows, keys per tile
-  static constexpr int kBoxes = D / 64;     // 64-column TMA boxes per row
   static constexpr int kBoxBytes = 64 * 128;  // one [64 rows][64 cols] box
-  static constexpr int kOpBytes = kBoxes * kBoxBytes;  // Q, or K or V of a tile
+  // 64-column TMA boxes per row of Q or K, and of V
+  static constexpr int kQKBoxes = DQK / 64, kVBoxes = DV / 64;
+  static constexpr int kQKBytes = kQKBoxes * kBoxBytes;  // Q, or K of a tile
+  static constexpr int kVBytes = kVBoxes * kBoxBytes;    // V of a tile
   // 1 KB of slack to align the tiles to 1024 bytes (the swizzle atom);
   // Q, two K slots, two V slots; barriers [0] Q, [1 + s] K slot s,
   // [3 + s] V slot s
-  static constexpr size_t kSmem = 1024 + 5 * (size_t)kOpBytes + 8 * 5;
+  static constexpr size_t kSmem =
+      1024 + 3 * (size_t)kQKBytes + 2 * (size_t)kVBytes + 8 * 5;
 };
 
 // A box of `map` whose rows sit at coordinate slot `row_slot` (1 or 2)
@@ -584,19 +600,21 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2],
   wgmma_commit();
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, Params p) {
-  using T = WgTile<D>;
+  using T = WgTile<DQK, DV>;
   constexpr int BQ = T::kBQ, BK = T::kBK;
-  static_assert(D == 64 || D == 128, "wgmma path: Dh = 64 or 128");
+  static_assert((DQK == DV && (DQK == 64 || DQK == 128)) ||
+                    (DQK == 192 && DV == 128),
+                "wgmma path: Dh = 64 or 128, or q/k 192 with v 128");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* sK = sQ + T::kOpBytes;      // slot s at s * kOpBytes
-  unsigned char* sV = sK + 2 * T::kOpBytes;  // likewise
-  uint64_t* bar = reinterpret_cast<uint64_t*>(sV + 2 * T::kOpBytes);
+  unsigned char* sK = sQ + T::kQKBytes;      // slot s at s * kQKBytes
+  unsigned char* sV = sK + 2 * T::kQKBytes;  // slot s at s * kVBytes
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sV + 2 * T::kVBytes);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;  // accumulator coordinates
@@ -624,18 +642,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   // slot j % 2.
   auto load = [&](bool is_v, int j) {
     const int slot = j & 1;
-    unsigned char* dst = (is_v ? sV : sK) + slot * T::kOpBytes;
+    const int bytes = is_v ? T::kVBytes : T::kQKBytes;
+    unsigned char* dst = (is_v ? sV : sK) + slot * bytes;
     uint64_t* bj = &bar[(is_v ? 3 : 1) + slot];
-    mbar_arrive_expect_tx(bj, T::kOpBytes);
+    mbar_arrive_expect_tx(bj, bytes);
 #pragma unroll
-    for (int x = 0; x < T::kBoxes; ++x)
+    for (int x = 0; x < (is_v ? T::kVBoxes : T::kQKBoxes); ++x)
       tma_box(dst + x * T::kBoxBytes, is_v ? &tm_v : &tm_k, bj, x * 64,
               (kt_lo + j) * BK, kvh, b, is_v ? p.v_row_slot : p.k_row_slot);
   };
   if (tid == 0) {
-    mbar_arrive_expect_tx(&bar[0], T::kOpBytes);
+    mbar_arrive_expect_tx(&bar[0], T::kQKBytes);
 #pragma unroll
-    for (int x = 0; x < T::kBoxes; ++x)
+    for (int x = 0; x < T::kQKBoxes; ++x)
       tma_box(sQ + x * T::kBoxBytes, &tm_q, &bar[0], x * 64, q0, h, b,
               p.q_row_slot);
     if (n > 0) {
@@ -646,9 +665,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   // This thread's rows of the carry: r = 0 -> row warp*16 + g, r = 1 -> +8.
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m_run[2] = {kMaskValue, kMaskValue}, l_run[2] = {0.f, 0.f};
   uint32_t pa[BK / 16][4];  // P of the previous tile, the A operand of P.V
   const int row_base = warp * 16 + g;
@@ -665,11 +684,12 @@ __global__ void __launch_bounds__(kThreads, 2)
       load(true, j);
     }
     mbar_wait(&bar[1 + (j & 1)], (j >> 1) & 1);
-    const uint32_t k_addr = smem_u32(sK + (j & 1) * T::kOpBytes);
+    const uint32_t k_addr = smem_u32(sK + (j & 1) * T::kQKBytes);
     float s[BK / 2];
     wgmma_fence();
+    // k-step kk reads 16 columns of box kk / 4 (32 bytes at kk % 4)
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       const uint32_t off = (kk >> 2) * T::kBoxBytes + (kk & 3) * 32;
       wgmma_ss_bf16_n64(s, desc_sw128(q_addr + off, 16, 1024),
                         desc_sw128(k_addr + off, 16, 1024), kk > 0);
@@ -678,7 +698,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (j > 0) {
       const int jv = j - 1;
       mbar_wait(&bar[3 + (jv & 1)], (jv >> 1) & 1);
-      pv_product<D>(o, pa, smem_u32(sV + (jv & 1) * T::kOpBytes));
+      pv_product<DV>(o, pa, smem_u32(sV + (jv & 1) * T::kVBytes));
       wgmma_wait<1>();  // S_j has landed; P.V may still run
     } else {
       wgmma_wait<0>();
@@ -757,7 +777,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     // rescale only where a row's max moved (most tiles leave it)
     if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+      for (int e = 0; e < DV / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
     }
     // S's accumulator is the A fragment of P.V: keys 16kk .. 16kk + 15
 #pragma unroll
@@ -770,22 +790,22 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (n > 0) {
     const int jv = n - 1;
     mbar_wait(&bar[3 + (jv & 1)], (jv >> 1) & 1);
-    pv_product<D>(o, pa, smem_u32(sV + (jv & 1) * T::kOpBytes));
+    pv_product<DV>(o, pa, smem_u32(sV + (jv & 1) * T::kVBytes));
     wgmma_wait<0>();
     fence_regs(o);
   }
 
   // o / l, 0 where no key was in the mask (l == 0, acc == 0).
   __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
-                      ((long long)b * p.hq + h) * p.lq * D;
+                      ((long long)b * p.hq + h) * p.lq * DV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + row_base + 8 * r;
     if (row >= p.lq) continue;
     const float l = l_run[r] == 0.f ? 1.f : l_run[r];
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<uint32_t*>(og + (long long)row * D + i * 8 + 2 * t) =
+    for (int i = 0; i < DV / 8; ++i)
+      *reinterpret_cast<uint32_t*>(og + (long long)row * DV + i * 8 + 2 * t) =
           pack_bf16(o[4 * i + 2 * r] / l, o[4 * i + 2 * r + 1] / l);
   }
 }
@@ -794,32 +814,40 @@ __global__ void __launch_bounds__(kThreads, 2)
 // bf16, Dh = 256: warp-specialised wgmma, Q, K and V loaded by TMA
 // ---------------------------------------------------------------------------
 
-struct Ws256Tile {
+// Shipped at 256/256 only; tools/flash256_variants.py also builds it at
+// q/k 192, v 128 against the one-warpgroup design MLA's heads take.
+template <int DQK, int DV>
+struct WsTile {
   static constexpr int kConsumers = 2;  // warpgroups of 64 query rows
   static constexpr int kThreads = (kConsumers + 1) * 128;  // + a producer
   static constexpr int kBQ = 64 * kConsumers, kBK = 64;  // rows, keys a tile
   static constexpr int kBoxBytes = 64 * 128;  // one [64 rows][64 cols] box
-  static constexpr int kOpBytes = 4 * kBoxBytes;  // 64 rows of 256: 32 KB
+  // 64-column TMA boxes per row of Q or K, and of V
+  static constexpr int kQKBoxes = DQK / 64, kVBoxes = DV / 64;
+  // 64 rows of Q or K (32 KB at 256), and of V
+  static constexpr int kQKBytes = kQKBoxes * kBoxBytes;
+  static constexpr int kVBytes = kVBoxes * kBoxBytes;
   // barriers: [0] Q; [1 + s] K slot s full, [3 + s] V full, [5 + s] K
   // empty, [7 + s] V empty
   static constexpr int kBars = 9;
   // 1 KB of slack to align the tiles to 1024 bytes (the swizzle atom);
   // Q of every consumer, two K slots, two V slots
-  static constexpr size_t kSmem =
-      1024 + (size_t)(kConsumers + 4) * kOpBytes + 8 * kBars;
+  static constexpr size_t kSmem = 1024 + (size_t)(kConsumers + 2) * kQKBytes +
+                                  2 * (size_t)kVBytes + 8 * kBars;
 };
 
-__global__ void __launch_bounds__(Ws256Tile::kThreads, 1)
-    flash_fwd_ws256(const __grid_constant__ CUtensorMap tm_q,
-                    const __grid_constant__ CUtensorMap tm_k,
-                    const __grid_constant__ CUtensorMap tm_v, Params p) {
-  using T = Ws256Tile;
-  constexpr int D = 256, NC = T::kConsumers, BQ = T::kBQ, BK = T::kBK;
+template <int DQK, int DV>
+__global__ void __launch_bounds__(WsTile<DQK, DV>::kThreads, 1)
+    flash_fwd_ws(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using T = WsTile<DQK, DV>;
+  constexpr int NC = T::kConsumers, BQ = T::kBQ, BK = T::kBK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* sK = sQ + NC * T::kOpBytes;  // slot s at s * kOpBytes
-  unsigned char* sV = sK + 2 * T::kOpBytes;   // likewise
-  uint64_t* bar = reinterpret_cast<uint64_t*>(sV + 2 * T::kOpBytes);
+  unsigned char* sK = sQ + NC * T::kQKBytes;  // slot s at s * kQKBytes
+  unsigned char* sV = sK + 2 * T::kQKBytes;   // slot s at s * kVBytes
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sV + 2 * T::kVBytes);
   uint64_t* const q_full = bar;
   uint64_t* const k_full = bar + 1;
   uint64_t* const v_full = bar + 3;
@@ -858,26 +886,26 @@ __global__ void __launch_bounds__(Ws256Tile::kThreads, 1)
     // into slot j % 2 once the consumers have released tile j - 2 there.
     setmaxnreg_dec<24>();
     if (tid == NC * 128) {
-      mbar_arrive_expect_tx(q_full, NC * T::kOpBytes);
+      mbar_arrive_expect_tx(q_full, NC * T::kQKBytes);
       for (int c = 0; c < NC; ++c)
 #pragma unroll
-        for (int x = 0; x < 4; ++x)
-          tma_box(sQ + c * T::kOpBytes + x * T::kBoxBytes, &tm_q, q_full,
+        for (int x = 0; x < T::kQKBoxes; ++x)
+          tma_box(sQ + c * T::kQKBytes + x * T::kBoxBytes, &tm_q, q_full,
                   x * 64, q0 + 64 * c, h, b, p.q_row_slot);
       for (int j = 0; j < n; ++j) {
         const int slot = j & 1, row = (kt_lo + j) * BK;
         const uint32_t parity = ((j >> 1) + 1) & 1;  // release of j - 2
         if (j >= 2) mbar_wait(&k_empty[slot], parity);
-        mbar_arrive_expect_tx(&k_full[slot], T::kOpBytes);
+        mbar_arrive_expect_tx(&k_full[slot], T::kQKBytes);
 #pragma unroll
-        for (int x = 0; x < 4; ++x)
-          tma_box(sK + slot * T::kOpBytes + x * T::kBoxBytes, &tm_k,
+        for (int x = 0; x < T::kQKBoxes; ++x)
+          tma_box(sK + slot * T::kQKBytes + x * T::kBoxBytes, &tm_k,
                   &k_full[slot], x * 64, row, kvh, b, p.k_row_slot);
         if (j >= 2) mbar_wait(&v_empty[slot], parity);
-        mbar_arrive_expect_tx(&v_full[slot], T::kOpBytes);
+        mbar_arrive_expect_tx(&v_full[slot], T::kVBytes);
 #pragma unroll
-        for (int x = 0; x < 4; ++x)
-          tma_box(sV + slot * T::kOpBytes + x * T::kBoxBytes, &tm_v,
+        for (int x = 0; x < T::kVBoxes; ++x)
+          tma_box(sV + slot * T::kVBytes + x * T::kBoxBytes, &tm_v,
                   &v_full[slot], x * 64, row, kvh, b, p.v_row_slot);
       }
     }
@@ -889,13 +917,13 @@ __global__ void __launch_bounds__(Ws256Tile::kThreads, 1)
     const int wq0 = q0 + 64 * wg;
     const int q_start = p.q_offset + wq0;
     // This thread's rows of the carry: r = 0 -> row warp*16 + g, r = 1 -> +8.
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m_run[2] = {kMaskValue, kMaskValue}, l_run[2] = {0.f, 0.f};
     uint32_t pa[BK / 16][4];  // P of the previous tile, the A operand of P.V
     const int row_base = warp * 16 + g;
-    const uint32_t q_addr = smem_u32(sQ + wg * T::kOpBytes);
+    const uint32_t q_addr = smem_u32(sQ + wg * T::kQKBytes);
     mbar_wait(q_full, 0);  // always: no copy may outlive the CTA
 
     // Tile j: S_j = q . k_j^T is issued, O is rescaled by tile j - 1's
@@ -907,16 +935,16 @@ __global__ void __launch_bounds__(Ws256Tile::kThreads, 1)
     auto rescale = [&]() {  // only where a row's max moved (most tiles)
       if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-        for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+        for (int e = 0; e < DV / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
       }
     };
     for (int j = 0; j < n; ++j) {
       mbar_wait(&k_full[j & 1], (j >> 1) & 1);
-      const uint32_t k_addr = smem_u32(sK + (j & 1) * T::kOpBytes);
+      const uint32_t k_addr = smem_u32(sK + (j & 1) * T::kQKBytes);
       float s[BK / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t off = (kk >> 2) * T::kBoxBytes + (kk & 3) * 32;
         wgmma_ss_bf16_n64(s, desc_sw128(q_addr + off, 16, 1024),
                           desc_sw128(k_addr + off, 16, 1024), kk > 0);
@@ -926,7 +954,7 @@ __global__ void __launch_bounds__(Ws256Tile::kThreads, 1)
         const int jv = j - 1;
         rescale();
         mbar_wait(&v_full[jv & 1], (jv >> 1) & 1);
-        pv_product<D>(o, pa, smem_u32(sV + (jv & 1) * T::kOpBytes));
+        pv_product<DV>(o, pa, smem_u32(sV + (jv & 1) * T::kVBytes));
         wgmma_wait<1>();  // S_j has landed; P.V may still run
       } else {
         wgmma_wait<0>();
@@ -952,22 +980,23 @@ __global__ void __launch_bounds__(Ws256Tile::kThreads, 1)
       const int jv = n - 1;
       rescale();
       mbar_wait(&v_full[jv & 1], (jv >> 1) & 1);
-      pv_product<D>(o, pa, smem_u32(sV + (jv & 1) * T::kOpBytes));
+      pv_product<DV>(o, pa, smem_u32(sV + (jv & 1) * T::kVBytes));
       wgmma_wait<0>();
       fence_regs(o);
     }
 
     // o / l, 0 where no key was in the mask (l == 0, acc == 0).
     __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
-                        ((long long)b * p.hq + h) * p.lq * D;
+                        ((long long)b * p.hq + h) * p.lq * DV;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = wq0 + row_base + 8 * r;
       if (row >= p.lq) continue;
       const float l = l_run[r] == 0.f ? 1.f : l_run[r];
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<uint32_t*>(og + (long long)row * D + i * 8 + 2 * t) =
+      for (int i = 0; i < DV / 8; ++i)
+        *reinterpret_cast<uint32_t*>(og + (long long)row * DV + i * 8 +
+                                     2 * t) =
             pack_bf16(o[4 * i + 2 * r] / l, o[4 * i + 2 * r + 1] / l);
     }
   }
@@ -1107,13 +1136,13 @@ int launch(Kernel kernel, int q_tile, size_t smem, int b, const Params& p,
 }
 
 template <int D, int BK>
-int launch_bf16(int b, const Params& p, cudaStream_t s) {
+int launch_bf16(int b, int, const Params& p, cudaStream_t s) {
   using T = Bf16Tile<D, BK>;
   return launch(flash_fwd_bf16<D, BK>, T::kBQ, T::kSmem, b, p, s);
 }
 
 template <int D>
-int launch_f32(int b, const Params& p, cudaStream_t s) {
+int launch_f32(int b, int, const Params& p, cudaStream_t s) {
   using T = F32Tile<D>;
   return launch(flash_fwd_f32<D>, T::kBQ, T::kSmem, b, p, s);
 }
@@ -1158,30 +1187,31 @@ int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The three maps of a wgmma design (Q, K, V), row slots set in p.
-template <int D>
+// The three maps of a wgmma design (Q and K DQK wide, V DV wide), row
+// slots set in p.
+template <int DQK, int DV>
 int make_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv, int b,
               int hkv, Params* p) {
   const int kv_rows = p->lk_eff > 0 ? p->lk_eff : 1;  // no tile is read at 0
-  int err = make_map(mq, p->q, D, p->lq, p->hq, b, p->q_sl, p->q_sh, p->q_sb,
-                     &p->q_row_slot);
+  int err = make_map(mq, p->q, DQK, p->lq, p->hq, b, p->q_sl, p->q_sh,
+                     p->q_sb, &p->q_row_slot);
   if (!err)
-    err = make_map(mk, p->k, D, kv_rows, hkv, b, p->k_sl, p->k_sh, p->k_sb,
+    err = make_map(mk, p->k, DQK, kv_rows, hkv, b, p->k_sl, p->k_sh, p->k_sb,
                    &p->k_row_slot);
   if (!err)
-    err = make_map(mv, p->v, D, kv_rows, hkv, b, p->v_sl, p->v_sh, p->v_sb,
+    err = make_map(mv, p->v, DV, kv_rows, hkv, b, p->v_sl, p->v_sh, p->v_sb,
                    &p->v_row_slot);
   return err;
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_wgmma(int b, int hkv, const Params& p0, cudaStream_t s) {
-  using T = WgTile<D>;
+  using T = WgTile<DQK, DV>;
   Params p = p0;
   CUtensorMap mq, mk, mv;
-  const int err = make_maps<D>(&mq, &mk, &mv, b, hkv, &p);
+  const int err = make_maps<DQK, DV>(&mq, &mk, &mv, b, hkv, &p);
   if (err) return err;
-  auto kernel = flash_fwd_wgmma<D>;
+  auto kernel = flash_fwd_wgmma<DQK, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (e != cudaSuccess) return (int)e;
@@ -1190,13 +1220,14 @@ int launch_wgmma(int b, int hkv, const Params& p0, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-int launch_ws256(int b, int hkv, const Params& p0, cudaStream_t s) {
-  using T = Ws256Tile;
+template <int DQK, int DV>
+int launch_ws(int b, int hkv, const Params& p0, cudaStream_t s) {
+  using T = WsTile<DQK, DV>;
   Params p = p0;
   CUtensorMap mq, mk, mv;
-  const int err = make_maps<256>(&mq, &mk, &mv, b, hkv, &p);
+  const int err = make_maps<DQK, DV>(&mq, &mk, &mv, b, hkv, &p);
   if (err) return err;
-  auto kernel = flash_fwd_ws256;
+  auto kernel = flash_fwd_ws<DQK, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (e != cudaSuccess) return (int)e;
@@ -1205,16 +1236,79 @@ int launch_ws256(int b, int hkv, const Params& p0, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// The design that serves a (dtype, d, dv): its launcher, its kernel, and
+// its dynamic shared memory and threads per CTA; `launch` is null where
+// there is none.  The one table both entry points below read.
+struct Design {
+  int (*launch)(int b, int hkv, const Params& p, cudaStream_t s);
+  const void* kernel;
+  size_t smem;
+  int threads;
+};
+
+template <int D, int BK>
+Design bf16_design() {
+  return {launch_bf16<D, BK>, (const void*)flash_fwd_bf16<D, BK>,
+          Bf16Tile<D, BK>::kSmem, kThreads};
+}
+
+template <int D>
+Design f32_design() {
+  return {launch_f32<D>, (const void*)flash_fwd_f32<D>, F32Tile<D>::kSmem,
+          kThreads};
+}
+
+template <int DQK, int DV>
+Design wgmma_design() {
+  return {launch_wgmma<DQK, DV>, (const void*)flash_fwd_wgmma<DQK, DV>,
+          WgTile<DQK, DV>::kSmem, kThreads};
+}
+
+template <int DQK, int DV>
+Design ws_design() {
+  using T = WsTile<DQK, DV>;
+  return {launch_ws<DQK, DV>, (const void*)flash_fwd_ws<DQK, DV>, T::kSmem,
+          T::kThreads};
+}
+
+Design design_for(int dtype, int d, int dv) {
+  if (d != dv) {  // the pairs of unequal widths that have a design
+    if (dtype == 1 && d == 192 && dv == 128) return wgmma_design<192, 128>();
+    return {};
+  }
+  if (dtype == 1) {
+    switch (d) {
+      case 16: return bf16_design<16, 64>();
+      case 32: return bf16_design<32, 64>();
+      case 64: return wgmma_design<64, 64>();
+      case 128: return wgmma_design<128, 128>();
+      case 256: return ws_design<256, 256>();
+    }
+  } else if (dtype == 0) {
+    switch (d) {
+      case 16: return f32_design<16>();
+      case 32: return f32_design<32>();
+      case 64: return f32_design<64>();
+      case 128: return f32_design<128>();
+      case 256: return f32_design<256>();
+    }
+  }
+  return {};
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the output
-// is contiguous.  has_window / has_softcap select the optional masks.
-// Returns a cudaError_t code (0 = ok).
+// dtype: 0 = float32, 1 = bfloat16.  d is q's and k's head size, dv v's
+// (and the output's); the design is chosen by (dtype, d, dv) alone.
+// Strides are in elements; the output is contiguous.  has_window /
+// has_softcap select the optional masks.  Returns a cudaError_t code
+// (0 = ok; cudaErrorInvalidValue for a (dtype, d, dv) without a design).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int b, int hq, int hkv, int lq,
-                           int lk, int d, long long q_sb, long long q_sh,
+                           int lk, int d, int dv, long long q_sb,
+                           long long q_sh,
                            long long q_sl, long long k_sb, long long k_sh,
                            long long k_sl, long long v_sb, long long v_sh,
                            long long v_sl, float scale, int causal,
@@ -1254,25 +1348,27 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   p.softcap_log2 = softcap * log2e;
   p.scale_over_cap = has_softcap ? scale / softcap : 0.f;
   p.q_row_slot = p.k_row_slot = p.v_row_slot = 1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    switch (d) {
-      case 16: return launch_bf16<16, 64>(b, p, s);
-      case 32: return launch_bf16<32, 64>(b, p, s);
-      case 64: return launch_wgmma<64>(b, hkv, p, s);
-      case 128: return launch_wgmma<128>(b, hkv, p, s);
-      case 256: return launch_ws256(b, hkv, p, s);
-    }
-  } else {
-    switch (d) {
-      case 16: return launch_f32<16>(b, p, s);
-      case 32: return launch_f32<32>(b, p, s);
-      case 64: return launch_f32<64>(b, p, s);
-      case 128: return launch_f32<128>(b, p, s);
-      case 256: return launch_f32<256>(b, p, s);
-    }
+  const Design ds = design_for(dtype, d, dv);
+  if (ds.launch == nullptr) return (int)cudaErrorInvalidValue;
+  return ds.launch(b, hkv, p, static_cast<cudaStream_t>(stream));
+}
+
+// The design that serves (dtype, d, dv), as flash_attention_launch
+// chooses it: out[0] its dynamic shared memory per CTA in bytes, out[1]
+// its threads per CTA, out[2] the CTAs that fit on one SM of this
+// device.  Returns a cudaError_t code.
+int flash_attention_design(int dtype, int d, int dv, int* out) {
+  const Design ds = design_for(dtype, d, dv);
+  if (ds.launch == nullptr) return (int)cudaErrorInvalidValue;
+  out[0] = (int)ds.smem;
+  out[1] = ds.threads;
+  if (ds.smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        ds.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ds.smem);
+    if (e != cudaSuccess) return (int)e;
   }
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], ds.kernel, ds.threads, ds.smem);
 }
 
 const char* flash_attention_error_string(int code) {

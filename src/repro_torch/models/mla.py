@@ -8,13 +8,17 @@ S, rope]}``: (512 + 64) values per token instead of 2·H·128 = 4,096.
 Two execution paths:
 - ``apply`` (forward/prefill): up-project c_kv to per-head K/V and run
   ordinary causal attention.  Its q/k heads are nope + rope wide (192 at
-  FULL) and its v heads v_head_dim (128), which the flash kernel does not
-  take, so q, k and v are zero-padded to the smallest head size the
-  kernel has that holds both (256 at FULL), attention runs with the
-  scale of the unpadded heads, and the output is cut back to v's width.
-  The padding is exact: zero columns add nothing to q·k, and the padded
-  v columns are dropped.  It is done on every backend, so the CPU runs
-  the same code the card does.
+  FULL) and its v heads v_head_dim (128).  Where the flash kernel has a
+  design for (dtype, q/k width, v width) — bf16 192/128, FULL's serving
+  heads — the heads go to attention as they are.  Elsewhere (f32, whose
+  design takes equal widths only, and SMOKE's 24/16) q, k and v are
+  zero-padded to the smallest head size the kernel has that holds both
+  (256 at FULL, 32 at SMOKE), attention runs with the scale of the
+  unpadded heads, and the output is cut back to v's width.  The padding
+  is exact: zero columns add nothing to q·k, and the padded v columns
+  are dropped.  The rule reads only the dtype and the widths, on every
+  backend, so the CPU runs the same code the card does; it never
+  depends on a failure at run time.
 - ``decode_absorbed``: the up-projections are absorbed into the query
   and output (q_nope·W_uk → a query in latent space; attn·W_uv → the
   output), so a step reads only the compressed cache.  The scores and
@@ -28,7 +32,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 
@@ -89,16 +93,25 @@ def compress_kv(params, x, cfg: MLAConfig, positions, rope_base):
     return c_kv, layers.apply_rope(k_rope, positions, rope_base)
 
 
-def padded_head_dim(cfg: MLAConfig) -> int:
-    """The flash kernel's smallest head size holding q/k and v."""
+def padded_head_dim(cfg: MLAConfig, dtype: torch.dtype) -> int | None:
+    """The head size the prefill gives attention: None (the heads as
+    they are) where the flash kernel has a design for (dtype, q/k width,
+    v width), else its smallest equal head size holding both."""
+    if fa_ops.has_design(dtype, cfg.qk_head_dim, cfg.v_head_dim):
+        return None
     need = max(cfg.qk_head_dim, cfg.v_head_dim)
-    return next(d for d in HEAD_DIMS if d >= need)
+    return next(d for d in fa_ops.HEAD_DIMS if d >= need)
 
 
-def padded_attention(q, k, v, *, scale: float, head_dim: int,
+def padded_attention(q, k, v, *, scale: float, head_dim: int | None,
                      backend: str = "auto"):
     """Causal attention of q, k [B, H, L, Dqk] and v [B, H, L, Dv] with
-    every head zero-padded to ``head_dim``; returns [B, H, L, Dv]."""
+    every head zero-padded to ``head_dim`` (none when it is None);
+    returns [B, H, L, Dv]."""
+    if head_dim is None:
+        return attn.attention(q, k, v, scale=scale, causal=True,
+                              backend=backend)
+
     def pad(t):
         return F.pad(t, (0, head_dim - t.shape[-1]))
 
@@ -122,7 +135,8 @@ def apply(params, x, cfg: MLAConfig, n_heads: int, positions,
     k = torch.cat([k_nope, k_rope.expand(b, h, l, cfg.rope_head_dim)],
                   dim=-1)
     o = padded_attention(q, k, v, scale=cfg.scale,
-                         head_dim=padded_head_dim(cfg), backend=backend)
+                         head_dim=padded_head_dim(cfg, q.dtype),
+                         backend=backend)
     o = o.transpose(1, 2).reshape(b, l, h * cfg.v_head_dim)
     return o @ params["w_o"].to(x.dtype), (c_kv, k_rope)
 

@@ -7,7 +7,9 @@ own kernel cases (rtol/atol 2e-3, bf16 5e-2, as `tests/test_kernels.py`
 sets them: the interpreted kernel sums in 64-wide blocks), and over the
 cases the serving path adds: a query chunk that is a suffix of the keys
 (q_offset > 0, Lq < Lk), keys masked by kv_len, and fully masked rows,
-which must be exactly 0.  The plain blockwise, banded and decode paths
+which must be exactly 0.  At MLA's unpadded heads (q/k 192, v 128),
+which the JAX kernel does not take, it is held to the JAX package's
+XLA path (f32 1e-5, bf16 5e-2).  The plain blockwise, banded and decode paths
 are held to their XLA counterparts at 2e-4 (f32, another summation
 order).  The CUDA kernel itself is held to the plain version on the
 card by ``chip_smoke.py``."""
@@ -90,14 +92,19 @@ def test_flash_plain_bf16_matches_jax_kernel():
                                rtol=5e-2, atol=5e-2)
 
 
-@pytest.mark.parametrize("lq,lk,q_offset,window", [
-    (40, 200, 160, None),   # chunked prefill: the last 40 of 200 keys
-    (64, 192, 128, 48),     # the same with a sliding window
-    (1, 77, 76, None),      # one query, the decode position
+@pytest.mark.parametrize("lq,lk,q_offset,window,dh,softcap,seed", [
+    (40, 200, 160, None, 32, None, 200),   # chunked prefill: the last 40
+    (64, 192, 128, 48, 32, None, 192),     # the same with a sliding window
+    (1, 77, 76, None, 32, None, 77),       # one query, the decode position
+    # gemma2's head: Dh 256, softcap 50
+    (40, 140, 100, None, 256, 50.0, 141),  # the last 40 of 140 keys
+    (64, 192, 128, 48, 256, 50.0, 193),    # the same with a sliding window
 ])
-def test_flash_query_chunk_matches_jax_kernel(lq, lk, q_offset, window):
-    q, k, v = _qkv(1, 4, 2, lq, 32, seed=lk, lk=lk)
-    kw = dict(causal=True, window=window, q_offset=q_offset)
+def test_flash_query_chunk_matches_jax_kernel(lq, lk, q_offset, window, dh,
+                                              softcap, seed):
+    """A query chunk (q_offset > 0, Lq < Lk), GQA 2:1."""
+    q, k, v = _qkv(1, 4, 2, lq, dh, seed=seed, lk=lk)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset)
     got = ops.flash_attention(*_t(q, k, v), **kw)
     want = ref_ops.flash_attention(*_j(q, k, v), block_q=64, block_k=64,
                                    **kw)
@@ -105,21 +112,41 @@ def test_flash_query_chunk_matches_jax_kernel(lq, lk, q_offset, window):
                                atol=2e-3)
 
 
-@pytest.mark.parametrize("lq,lk,q_offset,window", [
-    (40, 140, 100, None),   # the last 40 of 140 keys
-    (64, 192, 128, 48),     # the same with a sliding window
+# deepseek-v2-lite's MLA heads: q/k nope 128 + rope 64, v 128
+MLA_QK, MLA_V = 192, 128
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,lq,lk,q_offset,kv_len", [
+    (2, 64, 64, 0, None),      # causal, one whole 64-row tile
+    (1, 40, 40, 0, None),      # ragged L inside one tile
+    (1, 130, 130, 0, None),    # ragged L across three tiles
+    (1, 100, 611, 511, 555),   # kv_len ending mid-tile
+    (1, 40, 200, 160, None),   # q_offset with Lq < Lk
 ])
-def test_flash_query_chunk_at_dh256_matches_jax_kernel(lq, lk, q_offset,
-                                                       window):
-    """A query chunk (q_offset > 0, Lq < Lk) at gemma2's head: Dh 256,
-    softcap 50, GQA 2:1."""
-    q, k, v = _qkv(1, 4, 2, lq, 256, seed=lk + 1, lk=lk)
-    kw = dict(causal=True, window=window, softcap=50.0, q_offset=q_offset)
-    got = ops.flash_attention(*_t(q, k, v), **kw)
-    want = ref_ops.flash_attention(*_j(q, k, v), block_q=64, block_k=64,
-                                   **kw)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
-                               atol=2e-3)
+def test_flash_plain_mla_heads_match_jax_xla(b, lq, lk, q_offset, kv_len,
+                                             dtype):
+    """The wrapper's plain route at MLA's unpadded heads (v narrower than
+    q/k) against the JAX package's ``attention(..., backend="xla")`` on
+    the same heads; keys past kv_len are cut from the JAX operands."""
+    rng = np.random.default_rng(lq + lk)
+    h = 3
+    q = rng.normal(size=(b, h, lq, MLA_QK)).astype(np.float32)
+    k = rng.normal(size=(b, h, lk, MLA_QK)).astype(np.float32)
+    v = rng.normal(size=(b, h, lk, MLA_V)).astype(np.float32)
+    scale = MLA_QK ** -0.5
+    tdt, jdt, tol = {"float32": (torch.float32, jnp.float32, 1e-5),
+                     "bfloat16": (torch.bfloat16, jnp.bfloat16, 5e-2)}[dtype]
+    got = ops.flash_attention(*_t(q, k, v, dtype=tdt), scale=scale,
+                              q_offset=q_offset, kv_len=kv_len)
+    kl = lk if kv_len is None else kv_len
+    want = JA.attention(*_j(q, k[:, :, :kl], v[:, :, :kl], dtype=jdt),
+                        scale=scale, causal=True, q_offset=q_offset,
+                        backend="xla")
+    assert got.shape == (b, h, lq, MLA_V) and got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
 
 
 @pytest.mark.parametrize("lq,lk,q_offset,window,softcap,gain", [
@@ -204,12 +231,22 @@ def test_other_devices_raise_instead_of_falling_back():
 @pytest.mark.parametrize("bad,err", [
     ("dtype", TypeError), ("mixed dtype", TypeError), ("head size", ValueError),
     ("groups", ValueError), ("shape", ValueError), ("device", ValueError),
+    # unequal widths without a design of their own
+    ("qk 192 v 64", ValueError), ("qk 128 v 192", ValueError),
+    ("f32 qk 192 v 128", ValueError),
 ])
 def test_kernel_operand_checks_raise(bad, err):
     q = torch.zeros((1, 4, 8, 16))
     k = torch.zeros((1, 2, 8, 16))
     v = torch.zeros((1, 2, 8, 16))
-    if bad == "dtype":
+    widths = {"qk 192 v 64": (192, 64, torch.bfloat16),
+              "qk 128 v 192": (128, 192, torch.bfloat16),
+              "f32 qk 192 v 128": (192, 128, torch.float32)}
+    if bad in widths:
+        dqk, dv, dtype = widths[bad]
+        q, k = (torch.zeros(t.shape[:3] + (dqk,), dtype=dtype) for t in (q, k))
+        v = torch.zeros(v.shape[:3] + (dv,), dtype=dtype)
+    elif bad == "dtype":
         q, k, v = q.double(), k.double(), v.double()
     elif bad == "mixed dtype":
         k = k.bfloat16()
@@ -223,6 +260,39 @@ def test_kernel_operand_checks_raise(bad, err):
         k = k.to("meta")
     with pytest.raises(err):
         ops._check_operands(q, k, v)
+
+
+def test_head_width_designs():
+    """bf16 q/k 192 with v 128 (MLA's heads) has a design of its own;
+    equal widths have one in either dtype; other pairs have none, and a
+    kernel call with them raises before anything is built."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert ops.has_design(bf16, 192, 128)
+    assert not ops.has_design(f32, 192, 128)
+    assert not ops.has_design(bf16, 128, 192)
+    assert all(ops.has_design(dt, d, d) for d in ops.HEAD_DIMS
+               for dt in (bf16, f32))
+    assert not ops.has_design(bf16, 192, 192)
+    q = torch.zeros((1, 4, 8, 192), dtype=bf16)
+    k = torch.zeros((1, 2, 8, 192), dtype=bf16)
+    ops._check_operands(q, k, torch.zeros((1, 2, 8, 128), dtype=bf16))
+
+
+@pytest.mark.parametrize("dqk,dv,dtype", [
+    (192, 64, torch.bfloat16), (128, 192, torch.bfloat16),
+    (192, 128, torch.float32),
+])
+def test_kernel_call_without_a_design_raises_before_the_build(
+        dqk, dv, dtype, monkeypatch):
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(ops, "_lib", no_build)
+    q = torch.zeros((1, 4, 8, dqk), dtype=dtype)
+    k = torch.zeros((1, 2, 8, dqk), dtype=dtype)
+    v = torch.zeros((1, 2, 8, dv), dtype=dtype)
+    with pytest.raises(ValueError, match="no design"):
+        ops._launch(q, k, v, dqk ** -0.5, True, None, None, 0, 8)
 
 
 def test_strided_operands_are_read_in_place():

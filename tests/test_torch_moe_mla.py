@@ -9,9 +9,13 @@ routed to one expert; the chosen expert ids are equal, the output is
 within 1e-5 of its largest magnitude, the aux loss within 1e-6.  MLA:
 ``apply`` (prefill) and ``decode_absorbed`` against the reference,
 output and both compressed caches within 1e-5 of their largest
-magnitude.  The zero-padded heads the flash kernel is given for MLA
-against plain attention over the unpadded 24/16-wide (SMOKE) and
-192/128-wide (FULL) heads.
+magnitude.  ``apply`` at FULL's head widths (nope 128, rope 64, v
+128; 2 heads, a small d_model) against the reference: in bf16 the
+heads reach attention unpadded (the flash kernel's own 192/128
+design), in f32 padded to 256, and SMOKE's 24/16 padded to 32; bf16
+within 1e-2 of the largest magnitude.  The zero-padded heads against
+plain attention over the unpadded 24/16-wide (SMOKE) and 192/128-wide
+(FULL) heads.
 """
 import dataclasses
 import os
@@ -37,6 +41,10 @@ torch.set_num_threads(1)
 
 MOE_ARCHS = ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"]
 OUT_TOL, AUX_TOL, MLA_TOL = 1e-5, 1e-6, 1e-5
+# MLA prefill in bf16 against the reference in bf16: the two round the
+# projections' and attention's products at other places (3e-4 of the
+# largest magnitude seen at FULL's heads)
+MLA_BF16_TOL = 1e-2
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
@@ -203,6 +211,51 @@ def test_mla_apply_matches_jax(backend):
     _close(k_rope.numpy(), want_kr, MLA_TOL, "k_rope")
 
 
+@pytest.mark.parametrize("backend", ["kernel", "blockwise"])
+@pytest.mark.parametrize("widths,dtype,seen", [
+    ((128, 64, 128), "bfloat16", (192, 128)),  # FULL: the kernel's design
+    ((128, 64, 128), "float32", (256, 256)),   # f32 has none: padded
+    ((16, 8, 16), "bfloat16", (32, 32)),       # SMOKE's 24/16: padded
+])
+def test_mla_apply_head_route_matches_jax(widths, dtype, seen, backend,
+                                          monkeypatch):
+    """Prefill at the given (nope, rope, v) widths, 2 heads, d_model 64,
+    against the reference's unpadded ``apply``; a spy on
+    ``attn.attention`` records the (q/k, v) widths attention was given:
+    no padding reaches it where the kernel has a design."""
+    nope, rope, dv = widths
+    rcfg = ref_mla.MLAConfig(kv_lora_rank=32, rope_head_dim=rope,
+                             nope_head_dim=nope, v_head_dim=dv)
+    cfg = mla.MLAConfig(**dataclasses.asdict(rcfg))
+    d_model, h, b, l = 64, 2, 2, 70
+    params = ref_mla.init(jax.random.PRNGKey(2), rcfg, d_model, h)
+    x = np.random.default_rng(7).normal(size=(b, l, d_model)) \
+        .astype(np.float32)
+    pos = np.broadcast_to(np.arange(l), (b, l)).astype(np.int32)
+    tdt, jdt, tol = {"float32": (torch.float32, jnp.float32, MLA_TOL),
+                     "bfloat16": (torch.bfloat16, jnp.bfloat16,
+                                  MLA_BF16_TOL)}[dtype]
+    want, (want_c, _) = ref_mla.apply(
+        params, jnp.asarray(x, jdt), rcfg, h, jnp.asarray(pos), 10_000.0)
+    given = []
+    real = attn.attention
+
+    def spy(q, k, v, **kw):
+        given.append((q.shape[-1], k.shape[-1], v.shape[-1]))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(attn, "attention", spy)
+    fa_ops.reset_counts()
+    got, (c_kv, _) = mla.apply(
+        _tree(params), torch.from_numpy(x).to(tdt), cfg, h,
+        torch.from_numpy(pos).long(), 10_000.0, backend=backend)
+    assert given == [(seen[0], seen[0], seen[1])]
+    assert fa_ops.counts["plain"] == (backend == "kernel")
+    assert got.shape == (b, l, d_model) and got.dtype == tdt
+    _close(got.float().numpy(), np.asarray(want, np.float32), tol, "out")
+    _close(c_kv.float().numpy(), np.asarray(want_c, np.float32), tol, "c_kv")
+
+
 def test_mla_decode_absorbed_matches_jax():
     """Two decode steps over a cache filled by prefill, the rows at
     different lengths: output and both caches after each step."""
@@ -249,8 +302,11 @@ def _plain_attention(q, k, v, scale):
 def test_padded_heads_equal_unpadded_attention(qk, dv, backend):
     cfg = mla.MLAConfig(nope_head_dim=qk - qk // 3, rope_head_dim=qk // 3,
                         v_head_dim=dv, kv_lora_rank=32)
-    head = mla.padded_head_dim(cfg)
+    head = mla.padded_head_dim(cfg, torch.float32)
     assert head == {24: 32, 192: 256}[qk] and head in fa_ops.HEAD_DIMS
+    # in bf16 FULL's heads have a design of their own; SMOKE's do not
+    assert mla.padded_head_dim(cfg, torch.bfloat16) == {24: 32,
+                                                        192: None}[qk]
     rng = np.random.default_rng(qk)
     b, h, l = 1, 3, 40
     q, k = (torch.from_numpy(rng.normal(size=(b, h, l, qk))

@@ -1,4 +1,5 @@
-"""The bf16 Dh=256 flash design against the variants it was chosen over.
+"""The bf16 Dh=256 and MLA (q/k 192, v 128) flash designs against the
+variants they were chosen over.
 
     python3 tools/flash256_variants.py [--parent DIR]
 
@@ -10,6 +11,9 @@ source holds one design:
   no ``setmaxnreg``);
 * ``tanhf``: the softcap's tanh by ``tanhf`` instead of
   ``tanh.approx.f32``;
+* ``ws-mla``: MLA's 192/128 heads on the warp-specialised design (two
+  consumer warpgroups, 128 query rows and one CTA an SM) instead of the
+  one-warpgroup ``wgmma`` design (64 rows, two CTAs an SM);
 * ``parent`` (with ``--parent DIR``): the kernel of another tree, e.g.
   ``git archive`` of the parent commit unpacked into a directory that
   ``.gitignore`` lists.
@@ -17,13 +21,17 @@ source holds one design:
 Each build is one ``nvcc``, all started together, into
 ``build/flash256_variants/``.  Then each runs in a process of its own,
 in the order shipped, the others, the others reversed, shipped (two
-builds are compared only within one call): the bf16 Dh=256 cases of
-``chip_smoke.py``'s phase 2 (max |Δ| and atol against the plain
+builds are compared only within one call): the bf16 Dh=256 and MLA
+cases of ``chip_smoke.py``'s phase 2 (max |Δ| and atol against the plain
 version: max |Δ|, atol, rms |Δ|; or the failed check; one call of the phase a case, so each
-case draws its operands from the phase's seed) and phase 11's timings
-of gemma2 (L = 512 and 8,192, with and without the softcap) and
-deepseek's padded heads.  One JSON line a run,
-after the card's name and power limit.  Needs a card and ``nvcc``.
+case draws its operands from the phase's seed) and the flash timings of
+phases 6 and 11: gemma2 (L = 512 and 8,192, with and without the
+softcap), gemma3 and qwen3 (Dh 128, L = 512), llama (Dh 128, L = 512
+and 8,192) and deepseek's heads (192/128 by their own design, and
+padded to 256; a library from before v's width was an argument of the
+launch takes equal widths only, and then deepseek and the MLA cases are
+left out).  One JSON line a run, after the card's name and power limit.
+Needs a card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -52,6 +60,9 @@ SUBSTITUTIONS = {
     "tanhf": [
         ('  asm("tanh.approx.f32 %0, %1;\\n" : "=f"(y) : "f"(x));\n',
          "  y = tanhf(x);\n"),
+    ],
+    "ws-mla": [
+        ("return wgmma_design<192, 128>();", "return ws_design<192, 128>();"),
     ],
 }
 
@@ -96,10 +107,25 @@ def build(variants: list[str], parent: Path | None) -> None:
                 print(f"[{v}] {line.strip()}", file=sys.stderr)
 
 
+class _EqualWidths:
+    """A library whose launch takes one head size for q, k and v (no v
+    width after q's): the wrapper's call with the v width taken out."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def flash_attention_launch(self, *args):
+        assert args[10] == args[11], "this library takes equal widths only"
+        return self._lib.flash_attention_launch(*args[:11], *args[12:])
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
 def run_one(variant: str) -> dict:
     """The library of ``variant`` behind ``kernels/flash_attention/ops``:
-    phase 2's bf16 Dh=256 cases and phase 11's gemma2 and deepseek
-    timings."""
+    phase 2's bf16 Dh=256 and MLA cases and phase 11's gemma2 and
+    deepseek timings."""
     import torch
 
     import chip_smoke as cs
@@ -111,27 +137,33 @@ def run_one(variant: str) -> dict:
     lib = ctypes.CDLL(str(OUT / f"lib{variant}.so"))
     p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
+    pairs = hasattr(lib, "flash_attention_design")  # v's width an argument
     lib.flash_attention_launch.argtypes = (
-        [p, p, p, p] + [i] * 7 + [ll] * 9 + [f, i, i, i, i, f, i, i, p])
+        [p, p, p, p] + [i] * (8 if pairs else 7) + [ll] * 9
+        + [f, i, i, i, i, f, i, i, p])
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
-    fa_ops._lib = lambda: lib
+    fa_ops._lib = (lambda: lib) if pairs else (lambda: _EqualWidths(lib))
     out = {"variant": variant, "max_abs_err": {}, "by_shape": {}}
-    errs = {}
     for case in cs._flash_cases(torch):
-        if case[1][5] != 256 or case[2] != torch.bfloat16:
+        dh = case[1][5]
+        if case[2] != torch.bfloat16 or not (
+                dh == 256 or (pairs and isinstance(dh, tuple))):
             continue
         try:  # one case a call, so a failed case still reports the rest
             _, errs = cs.phase_flash_kernel(torch, fa_ops, fa_ref, [case])
             out["max_abs_err"][case[0]] = errs[case[0]]
         except AssertionError as e:
             out["max_abs_err"][case[0]] = f"FAILED: {str(e)[:400]}"
-    out["max_abs_err"]["deepseek MLA padded"] = errs.get(
-        "deepseek MLA padded", "FAILED: no case passed")
-    for arch in ("gemma2-9b", "deepseek-v2-lite-16b"):
+    archs = ("gemma2-9b", "gemma3-27b", "qwen3-moe-30b-a3b",
+             "deepseek-v2-lite-16b")
+    for arch in archs if pairs else archs[:-1]:
         out["by_shape"].update(cs._family_flash(
             torch, fa_ops, fa_ref, arch, get_arch(arch).config))
+    for l, runs in ((cs.ATTN_SERVE["l"], 10), (cs.ATTN_LONG_L, 5)):
+        out["by_shape"][f"llama3.2-3b L={l}"] = cs._time_flash(
+            torch, fa_ops, fa_ref, l, runs)
     return out
 
 
