@@ -29,6 +29,7 @@ from repro_torch.core.ingest import KnowledgeBase
 from repro_torch.core.tokenizer import tokenize
 from repro_torch.launch.steps import GenerationSteps
 from repro_torch.models import transformer as T
+from repro_torch.obs import trace as obs_trace
 
 
 def text_to_tokens(text: str, vocab: int) -> list[int]:
@@ -130,45 +131,117 @@ class RAGPipeline:
         return self.steps
 
     def generate(self, question: str, results: list[RetrievalResult],
-                 max_new_tokens: int) -> RAGOutput:
+                 max_new_tokens: int, *,
+                 trace=obs_trace.INHERIT) -> RAGOutput:
         """Generation stage alone: pack pre-retrieved context, prefill
         (attention backend ``"auto"``: the kernel on the card), then
-        greedy decode (first index of the largest logit)."""
+        greedy decode (first index of the largest logit).
+
+        With the tracer on, a ``generate`` span in ``trace`` (by default
+        the enclosing span's on this thread, else a trace of its own)
+        holds a ``pack_context`` span and, for the prefill and each
+        decode step, a ``step_launch`` span (the step's inputs built,
+        copied in and its graph launched; a capture too on a cold call)
+        and a ``token_readback`` span (the host blocked until the step's
+        token is back).  With it off, or ``trace`` 0 (an unsampled
+        request), nothing is recorded and no clock read or sync is
+        added."""
+        if not obs_trace.enabled():
+            return self._generate(question, results, max_new_tokens, None)
+        with obs_trace.span("generate", trace=trace) as span:
+            if not span.trace_id:
+                return self._generate(question, results, max_new_tokens,
+                                      None)
+            marks = _Marks()
+            out = self._generate(question, results, max_new_tokens, marks)
+            span.set(prompt_len=out.prompt_len, tokens=len(out.token_ids),
+                     **marks.args)
+            obs_trace.record_batch(span.trace_id,
+                                   marks.children(span.span_id))
+        return out
+
+    def _generate(self, question: str, results: list[RetrievalResult],
+                  max_new_tokens: int, marks: _Marks | None) -> RAGOutput:
+        clock = time.perf_counter
+        if marks is not None:
+            t = clock()
         prompt = self._pack_context(results) + text_to_tokens(
             question, self.cfg.vocab
         )
         prompt = prompt[-self.max_context_tokens:] or [0]
         n = len(prompt)
+        if marks is not None:
+            marks.add("pack_context", t, clock(), passages=len(results),
+                      tokens=n)
         steps = self.generation_steps(max_new_tokens)
         bucket = steps.bucket(n)
         prefill = steps.prefill(bucket)
+        if marks is not None:
+            captures = prefill.captures + steps.decode.captures
+            t = clock()
 
         tokens = torch.tensor([prompt + [0] * (bucket - n)],
                               dtype=torch.int64)
         length = torch.tensor([n], dtype=torch.int32)
         if not prefill.captured:
             prefill.capture(tokens, length)
-        t0 = time.perf_counter()
+        t0 = clock()
         logits, _, _ = prefill(tokens, length)
+        if marks is not None:
+            t1 = clock()
+            marks.add("step_launch", t, t1, step="prefill")
         next_tok = int(torch.argmax(logits[0]))
-        prefill_s = time.perf_counter() - t0
+        t2 = clock()
+        prefill_s = t2 - t0
+        if marks is not None:
+            marks.add("token_readback", t1, t2, step="prefill")
         out: list[int] = []
         decode_s = 0.0
         for _ in range(max_new_tokens):
             out.append(next_tok)
             n += 1
+            if marks is not None:
+                t = clock()
             tok = torch.tensor([[next_tok]], dtype=torch.int64)
             length = torch.tensor([n], dtype=torch.int32)
             if not steps.decode.captured:
                 # captured on this step's own inputs: the warm-up writes
                 # the cache slot the step writes, with the same values
                 steps.decode.capture(tok, length)
-            t1 = time.perf_counter()
+            t0 = clock()
             logits, _ = steps.decode(tok, length)
+            if marks is not None:
+                t1 = clock()
+                marks.add("step_launch", t, t1, step="decode")
             next_tok = int(torch.argmax(logits[0, 0]))
-            decode_s += time.perf_counter() - t1
+            t2 = clock()
+            decode_s += t2 - t0
+            if marks is not None:
+                marks.add("token_readback", t1, t2, step="decode")
         if self.retrace_guard is not None:
             self.retrace_guard.check("rag.generate")
+        if marks is not None:
+            marks.args.update(bucket=bucket, captures=prefill.captures
+                              + steps.decode.captures - captures)
         return RAGOutput(retrieved=results, token_ids=out,
                          prompt_len=len(prompt), prefill_s=prefill_s,
                          decode_s=decode_s)
+
+
+class _Marks:
+    """The stages of one traced ``generate`` on the generator thread, on
+    the ``time.perf_counter`` clock, and the args of its span."""
+
+    __slots__ = ("stages", "args")
+
+    def __init__(self):
+        self.stages: list[tuple[str, float, float, dict]] = []
+        self.args: dict = {}
+
+    def add(self, name: str, t0: float, t1: float, **args) -> None:
+        self.stages.append((name, t0, t1 - t0, args))
+
+    def children(self, parent: int) -> list[tuple]:
+        """``record_batch`` intervals: each stage a child of ``parent``."""
+        return [(name, t0, dur, 0, parent, args)
+                for name, t0, dur, args in self.stages]

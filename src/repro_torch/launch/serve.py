@@ -245,7 +245,8 @@ def main(argv=None):
                 print(f"REJECTED {q!r}: {exc}")
         for q, fut in futures:
             served = fut.result()
-            out = rag.generate(q, served.results, args.max_new_tokens)
+            out = rag.generate(q, served.results, args.max_new_tokens,
+                               trace=served.trace_id)
             gens.append(out)
             print(f"\nQ: {q}  [generation {served.generation}"
                   f"{', cached' if served.cached else ''}]")

@@ -20,6 +20,9 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import SpanRecord
 
 _ID_KEYS = ("trace_id", "span_id", "parent_id")
+# the children of a ``generate`` span (core/rag.py): what the generator
+# thread does between a request's retrieval and its answer
+GENERATION_STAGES = ("pack_context", "step_launch", "token_readback")
 
 
 # ---- Chrome trace-event JSON --------------------------------------------
@@ -163,7 +166,9 @@ def tenant_breakdown(spans) -> dict:
 
 
 def format_breakdown(spans) -> str:
-    """The ``python -m repro_torch.obs`` table: per-stage count/p50/p99."""
+    """The ``python -m repro_torch.obs`` table: per-stage count/p50/p99,
+    and how much of the traced requests and generations their stage
+    spans cover."""
     br = stage_breakdown(spans)
     if not br:
         return "no spans"
@@ -182,6 +187,17 @@ def format_breakdown(spans) -> str:
         lines.append(
             f"-- {len(reqs)} traced requests: mean {mean_req * 1e3:.2f} ms, "
             f"stage spans cover {cov * 100:.1f}% of end-to-end")
+    gens = {r.span_id: r.dur_ns for r in spans if r.name == "generate"}
+    if gens:
+        staged = sum(r.dur_ns for r in spans if r.parent_id in gens
+                     and r.name in GENERATION_STAGES)
+        total = sum(gens.values())
+        cov = staged / total if total else 0.0
+        lines.append(
+            f"-- {len(gens)} traced generations: mean "
+            f"{total / len(gens) / 1e6:.2f} ms, "
+            f"{'/'.join(GENERATION_STAGES)} spans cover "
+            f"{cov * 100:.1f}% of generate")
     tb = tenant_breakdown(spans)
     if tb and set(tb) != {"-"}:  # only when tenant-labeled requests exist
         lines.append("")

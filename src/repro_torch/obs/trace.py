@@ -42,7 +42,9 @@ from collections import deque
 
 DEFAULT_CAPACITY = 65536
 
-_INHERIT = object()
+# the default of ``trace=`` and ``parent=``: the enclosing span's on
+# this thread (a fresh trace at top level, for ``span``)
+INHERIT = object()
 
 
 class SpanRecord:
@@ -248,9 +250,6 @@ class Tracer:
         (EXPLAIN capture).  Nests; restores the previous collector."""
         return _CollectScope(self, col)
 
-    def collecting(self) -> bool:
-        return getattr(self._tls, "collector", None) is not None
-
     def active(self) -> bool:
         """True when instrumentation should run its timed path: the
         tracer is enabled *or* a collector is bound to this thread.
@@ -279,7 +278,7 @@ class Tracer:
 
     # ---- recording ------------------------------------------------------
 
-    def span(self, name: str, *, trace=_INHERIT, parent=_INHERIT, **args):
+    def span(self, name: str, *, trace=INHERIT, parent=INHERIT, **args):
         """Open a span as a context manager.
 
         ``trace`` defaults to the enclosing span's trace on this thread
@@ -296,7 +295,7 @@ class Tracer:
             # via the stack push, like _SuppressScope)
             return _Span(self, name, 0, 0, 0, args, col)
         stack = getattr(self._tls, "stack", None)
-        explicit = trace is not _INHERIT
+        explicit = trace is not INHERIT
         if not explicit:
             trace = stack[-1][0] if stack else self.begin_trace()
         if not trace:
@@ -305,12 +304,12 @@ class Tracer:
             # explicit 0 = an unsampled request: suppress descendants
             # too (otherwise they would each start orphan traces)
             return _SuppressScope(self) if explicit else _NULL
-        if parent is _INHERIT:
+        if parent is INHERIT:
             parent = stack[-1][1] if stack else 0
         return _Span(self, name, trace, self.alloc_id(), parent, args, col)
 
     def record(self, name: str, t0_s: float, dur_s: float, *,
-               trace=_INHERIT, parent=_INHERIT, span_id: int = 0,
+               trace=INHERIT, parent=INHERIT, span_id: int = 0,
                **args) -> int:
         """Record an already-measured interval (``time.perf_counter``
         floats) as a span — for stages timed manually, either across
@@ -323,11 +322,11 @@ class Tracer:
         if not self._enabled:
             return 0
         stack = getattr(self._tls, "stack", None)
-        if trace is _INHERIT:
+        if trace is INHERIT:
             trace = stack[-1][0] if stack else 0
         if not trace:
             return 0
-        if parent is _INHERIT:
+        if parent is INHERIT:
             parent = stack[-1][1] if stack else 0
         sid = span_id or self.alloc_id()
         self._buf.append((
@@ -428,7 +427,6 @@ begin_trace = _DEFAULT.begin_trace
 alloc_id = _DEFAULT.alloc_id
 drain = _DEFAULT.drain
 collect = _DEFAULT.collect
-collecting = _DEFAULT.collecting
 
 
 if os.environ.get("RAGDB_TRACE", "") not in ("", "0"):  # pragma: no cover

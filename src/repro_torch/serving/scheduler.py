@@ -86,12 +86,16 @@ class ServedResult:
     (obs/explain.py), available only when the request was submitted
     with ``explain=True`` — materialized lazily on first access
     (``plan_source`` holds the bound thunk), so resolving a future
-    costs nothing on the traced-QPS budget when nobody reads the plan."""
+    costs nothing on the traced-QPS budget when nobody reads the plan.
+    ``trace_id`` is the request's trace (0 when it was not sampled), for
+    the caller's later stages, such as ``RAGPipeline.generate(...,
+    trace=)``, to record into."""
 
     results: list[RetrievalResult]
     generation: int
     cached: bool = False
     plan_source: object = None   # zero-arg () -> QueryPlan, or None
+    trace_id: int = 0
     _plan: QueryPlan | None = field(default=None, repr=False,
                                     compare=False)
 
@@ -295,7 +299,7 @@ class MicroBatchScheduler:
                     fut: Future = Future()
                     fut.set_result(
                         ServedResult(hit, generation, cached=True,
-                                     plan_source=plan_source)
+                                     plan_source=plan_source, trace_id=tid)
                     )
                     return fut
                 self.metrics.on_cache_miss()
@@ -479,7 +483,8 @@ class MicroBatchScheduler:
                             t_score0, t_score1, t_done)
                     req.future.set_result(
                         ServedResult(res, snap.generation,
-                                     plan_source=plan_source)
+                                     plan_source=plan_source,
+                                     trace_id=req.trace_id)
                     )
                     if req.trace_id:
                         deferred.append(

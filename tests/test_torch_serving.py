@@ -2,7 +2,9 @@
 
 Scheduled results equal a direct ``query_batch`` at the generation the
 flush pinned, under live ingest; the driver prints the JAX engine's ids
-and scores for the same corpus and generates for every request, and in
+and scores for the same corpus and generates for every request, its
+``--trace`` file holding each request's retrieval and generation in one
+trace, and in
 multi-tenant mode (``--tenant-root``) prints the JAX driver's ids and
 scores for every tenant; both drivers read the same flags alike; the
 package imports neither jax nor anything of the JAX package; entry
@@ -23,6 +25,8 @@ from repro.core.ingest import KnowledgeBase as RefKB
 from repro_torch.core.ingest import KnowledgeBase
 from repro_torch.data.corpus import make_corpus, write_corpus_dir
 from repro_torch.launch import serve
+from repro_torch.obs import load_chrome_trace
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import (
     EngineSnapshot,
     ServingRuntime,
@@ -131,12 +135,18 @@ def test_serve_prints_the_jax_engines_ids_and_scores(tmp_path):
     corpus = str(tmp_path / "corpus")
     write_corpus_dir(corpus, docs)
     queries = list(entities) + ["other query", "invoice payment"]
+    trace_file = str(tmp_path / "trace.json")
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = serve.main(["--corpus", corpus, "--dim", "1024", "--top-k", "3",
-                         "--max-batch", "4", "--device", "cpu",
-                         "--save", str(tmp_path / "kb.ragdb"),
-                         "--queries", *queries])
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(["--corpus", corpus, "--dim", "1024",
+                             "--top-k", "3", "--max-batch", "4",
+                             "--device", "cpu",
+                             "--save", str(tmp_path / "kb.ragdb"),
+                             "--trace", trace_file, "--queries", *queries])
+    finally:  # --trace turned the process's tracer on
+        obs_trace.disable()
+        obs_trace.get().drain()
     assert rc == 0
     got = _printed(buf.getvalue())
     ref_kb = RefKB(dim=1024)
@@ -153,6 +163,20 @@ def test_serve_prints_the_jax_engines_ids_and_scores(tmp_path):
     assert "generator: llama3.2-smoke" in out
     assert "generation: 5 requests" in out
     assert "serving metrics: served 5/5 requests" in out
+    # the trace holds each request whole: its retrieval stages and, in
+    # the same trace, its generation with one launch and one readback a
+    # step (the prefill and 8 decode steps)
+    spans = load_chrome_trace(trace_file)
+    requests = [s for s in spans if s.name == "request"]
+    assert len(requests) == len(queries)
+    for req in requests:
+        mine = [s for s in spans if s.trace_id == req.trace_id]
+        (gen,) = [s for s in mine if s.name == "generate"]
+        kids = [s.name for s in mine if s.parent_id == gen.span_id]
+        assert sorted(kids) == sorted(
+            ["pack_context"] + ["step_launch", "token_readback"] * 9)
+        assert "queue_wait" in {s.name for s in mine}
+    assert "-- 5 traced generations" in out
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b",
