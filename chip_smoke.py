@@ -68,7 +68,8 @@ Phases (any failure raises and the script exits non-zero):
    queries, every request must generate, the reloaded run must give the
    same ids, scores and token ids, the HSF kernel's launches must equal
    the scoring dispatches, flash launches must be 28 per prefill (each a
-   replay) with no plain call, and the map path must give the same bits
+   replay) with no plain call, decode attention launches 28 per decode
+   step with no plain call, and the map path must give the same bits
    on the card and on the CPU.
 4. Timings of the HSF kernels and the top-k at their serving shapes
    (top-k also at the recsys shape, 1,000,448, and at 16,777,216 scores
@@ -156,7 +157,10 @@ Phases (any failure raises and the script exits non-zero):
    and its graphs are freed.  Per arch: (a) ``serve.main --container
    (phase 3's) --arch <id>`` serves 16 of phase 3's requests, each
    generating, with phase 3's ids and scores, flash launches = layers ×
-   prefills and no plain call; the 512 bucket's prefill replay and the
+   prefills and no plain call, decode attention launches = the layers
+   it has a design for (gemma3's global ones, all of qwen3's, none of
+   gemma2's or deepseek's) × decode steps and no plain call; the 512
+   bucket's prefill replay and the
    decode replay equal the eager static-shape steps bit for bit, and two
    served requests again through the graphs give the served tokens and
    the eager steps' tokens; (b) last-position prefill logits through the
@@ -245,10 +249,28 @@ Phases (any failure raises and the script exits non-zero):
    table) not fitting.  The count of every cell runs on the CPU
    (``tests/test_torch_dryrun_cells.py``): it takes minutes of host time
    the script's limit has no room for.
+16. The decode attention core (``csrc/decode_attention.cu``): the kernel
+   against ``ref.py`` on the card at the benchmark's cache (2,056 slots)
+   for qwen3-moe (32:4, qk-norm), llama3.2 (24:8) and gemma3's global
+   layers (32:16, qk-norm, query scale), fills 1, 1,024, 1,950 and 2,056
+   and two rows of fills 1,950 and 7, then at phase 9's long caches,
+   where each split streams many tiles through both stages: the three
+   archs at 32,768 slots full, llama3.2 at decode_32k's batch 8 of
+   32,768 full and at long_500k's cut of 262,144 full: the output
+   within DECODE_TOL of its max, the cache bit-equal but the new slots, those within one bf16
+   ulp; a CUDA graph of the call replayed to the eager bits at two
+   inputs; the kernel at fill 1,950 beside its bound (K and V read once),
+   the plain path and SDPA over the filled slots (attention alone); the
+   launches of the core (2 with the kernel) and of a qwen3-moe
+   FULL-width decode step a layer (2 layers less 1), with the kernel and
+   with the plain path, from a captured graph's nodes and as the
+   profiler records them.
 
 The second line from the end is a JSON ``kernels`` record; the last is
 ``{"ok": true, "device": {...}}``.  ``--kernel-timings`` runs phase 1's
-build and phase 4's timings alone and prints them as one JSON line.  With no CUDA device, or without the
+build and phase 4's timings alone and prints them as one JSON line;
+``--decode-attention`` builds that kernel and runs phase 16 alone, its
+result one JSON line.  With no CUDA device, or without the
 repository's ``src/repro_torch`` beside it, the script exits non-zero
 and prints no result.
 """
@@ -1301,6 +1323,7 @@ def _serve(serve, argv):
 
 def phase_main_path(torch, ops, fa_ops, tmp):
     from repro_torch.core.engine import QueryEngine
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.core.ingest import KnowledgeBase
     from repro_torch.data.corpus import make_corpus, write_corpus_dir
     from repro_torch.launch import serve
@@ -1327,6 +1350,7 @@ def phase_main_path(torch, ops, fa_ops, tmp):
     # the counts are zeroed just before the main path and read just after
     ops.reset_counts()
     fa_ops.reset_counts()
+    da_ops.reset_counts()
     _log("  serve: ingest + save + serve + generate")
     first, tokens_1, flushes_1 = _serve(serve, [
         "--corpus", corpus, "--dim", str(DIM), "--save", container, *common])
@@ -1349,9 +1373,15 @@ def phase_main_path(torch, ops, fa_ops, tmp):
     prefills = len(tokens_1) + len(tokens_2)
     assert fa_plain == 0, fa_ops.counts
     assert fa_launches == N_LAYERS * prefills > 0, (fa_launches, prefills)
+    decodes = prefills * MAX_NEW_TOKENS
+    da_launches = da_ops.counts["launches"]
+    assert da_ops.counts == {"launches": N_LAYERS * decodes, "plain": 0}, \
+        (da_ops.counts, decodes)
     _log(f"  generation: {prefills} prefills, flash launches {fa_launches} "
-         f"(= {N_LAYERS} layers × {prefills}), plain calls {fa_plain}; the "
-         "reloaded run generated the same token ids")
+         f"(= {N_LAYERS} layers × {prefills}), plain calls {fa_plain}; "
+         f"{decodes} decode steps, decode attention launches {da_launches} "
+         f"(= {N_LAYERS} × {decodes}), plain 0; the reloaded run generated "
+         "the same token ids")
 
     # the entity doc must rank first and carry the boost.  Its score is
     # 1 + cosine, and the cosine of a one-token query can come out
@@ -1388,7 +1418,8 @@ def phase_main_path(torch, ops, fa_ops, tmp):
          f"{on_card.device} and {on_host.device} (ids, scores, cosines, "
          "boost flags)")
     ctx = {"container": container, "queries": queries, "entities": entities,
-           "flat": first, "tokens": tokens_1, "common": common}
+           "flat": first, "tokens": tokens_1, "common": common,
+           "decode_launches": da_launches}
     return launches, fa_launches, ctx
 
 
@@ -3569,6 +3600,7 @@ def _lm_family(torch, T, steps, serve, fa_ops, fa_ref, arch, ctx):
     from repro_torch.core.engine import QueryEngine
     from repro_torch.core.ingest import KnowledgeBase
     from repro_torch.core.rag import RAGPipeline
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.models import moe
 
     cfg = get_arch(arch).config
@@ -3576,6 +3608,7 @@ def _lm_family(torch, T, steps, serve, fa_ops, fa_ref, arch, ctx):
     queries = (ctx["queries"][:FAMILY_QUERIES]
                + ctx["queries"][-FAMILY_QUERIES:])
     fa_ops.reset_counts()
+    da_ops.reset_counts()
     _log(f"  (a) {arch}: serve.main --container (phase 3's) --arch {arch} "
          f"({cfg.param_count() / 1e9:.2f} B params, "
          f"{cfg.active_param_count() / 1e9:.2f} B active, "
@@ -3590,9 +3623,16 @@ def _lm_family(torch, T, steps, serve, fa_ops, fa_ref, arch, ctx):
     assert plain == 0 and launches == cfg.n_layers * len(queries) > 0, \
         (launches, plain)
     assert results == {q: ctx["flat"][q] for q in queries}
+    designed = _decode_expected_layers(torch, T, da_ops, arch, cfg)
+    decodes = len(queries) * MAX_NEW_TOKENS
+    assert da_ops.counts == {"launches": designed * decodes, "plain": 0}, \
+        (da_ops.counts, designed, decodes)
     _log(f"  (a) {len(queries)} requests generated {MAX_NEW_TOKENS} tokens "
          f"each; ids and scores equal phase 3's; flash launches {launches} "
-         f"(= {cfg.n_layers} layers × {len(queries)} prefills), plain 0")
+         f"(= {cfg.n_layers} layers × {len(queries)} prefills), plain 0; "
+         f"decode attention launches {da_ops.counts['launches']} (= "
+         f"{designed} layers with a design × {decodes} decode steps), "
+         "plain 0")
 
     t0 = time.perf_counter()
     model = _served_model(torch, T, cfg)
@@ -3622,7 +3662,8 @@ def _lm_family(torch, T, steps, serve, fa_ops, fa_ref, arch, ctx):
     out_err = phase_cross_check(torch, T, model, cfg, lengths=(512, 77),
                                 floor_block_k=64)
 
-    out = {"launches": launches, "logit_rel": out_err}
+    out = {"launches": launches, "logit_rel": out_err,
+           "decode_launches": designed * decodes}
     moe_layer = next((lp.mlp for lp in model.layers if lp.moe), None)
     if arch == "qwen3-moe-30b-a3b":
         out["moe_err"] = _moe_layer_check(torch, steps, moe, cfg, moe_layer)
@@ -5084,6 +5125,331 @@ def phase_gnn(torch, np):
     return cut, cells
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the decode attention core (csrc/decode_attention.cu)
+# ---------------------------------------------------------------------------
+
+# the benchmark's decode cache: the 2,048 bucket plus 8 answer tokens
+DECODE_SLOTS = 2_056
+DECODE_FILLS = (1, 1_024, 1_950, 2_056)
+DECODE_TIMED_FILL = 1_950  # the benchmark's prompts, ~1,950 tokens
+# kernel vs plain, of the plain output's max |o|: p rounded to bf16 at
+# the split's running max instead of the global one, another summation
+# order, and the output rounded to bf16 (a few bf16 ulps)
+DECODE_TOL = 2e-2
+DECODE_ARCHS = ("qwen3-moe-30b-a3b", "llama3.2-3b", "gemma3-27b")
+# phase 9's long caches, (arch, batch, slots), each filled to the end: a
+# split streams 8 (qwen3) to 125 (long_500k) 64-row tiles on an H100's
+# 132 SMs, so both stages of the kernel's pipeline are refilled many times
+DECODE_LONG = (("qwen3-moe-30b-a3b", 1, 32_768), ("llama3.2-3b", 1, 32_768),
+               ("gemma3-27b", 1, 32_768), ("llama3.2-3b", 8, 32_768),
+               ("llama3.2-3b", 1, 262_144))
+# the layers each arch's decode step sends to the kernel, from the
+# config alone (not has_design): every layer of the GQA archs with Dh
+# 128, gemma3's global layers (its local ones use a ring cache), none of
+# gemma2's (Dh 256, softcap) or deepseek's (MLA's absorbed decode)
+DECODE_DESIGNED = {
+    "llama3.2-3b": lambda cfg: cfg.n_layers,
+    "qwen3-moe-30b-a3b": lambda cfg: cfg.n_layers,
+    "gemma3-27b": lambda cfg: cfg.layer_kinds.count("global"),
+    "gemma2-9b": lambda cfg: 0,
+    "deepseek-v2-lite-16b": lambda cfg: 0,
+}
+
+
+def _decode_expected_layers(torch, T, da_ops, arch, cfg) -> int:
+    """DECODE_DESIGNED's count for the arch, checked against what
+    ``has_design`` accepts of the decode step's operands."""
+    want = DECODE_DESIGNED[arch](cfg)
+    got = _decode_designed_layers(torch, T, da_ops, cfg)
+    assert got == want, (arch, got, want)
+    return want
+
+
+def _decode_designed_layers(torch, T, da_ops, cfg) -> int:
+    """The layers whose decode attention the kernel has a design for:
+    ``has_design`` on the operands the decode step gives it, as shapes
+    on the meta device."""
+    hd, dt = cfg.head_dim, cfg.compute_dtype
+    q = torch.empty((1, cfg.n_heads, 1, hd), dtype=dt, device="meta")
+    kv = torch.empty((1, cfg.n_kv_heads, 1, hd), dtype=dt, device="meta")
+    return sum(da_ops.has_design(
+        q, kv, kv, c["k"], c["v"], softcap=cfg.attn_softcap,
+        window=cfg.window if kind == "local" else None)
+        for kind, c in zip(cfg.layer_kinds,
+                           T.init_cache(cfg, 1, 2, device="meta"))
+        if "k" in c)
+
+
+def _decode_operands(torch, cfg, b, seed, n_slots=DECODE_SLOTS):
+    """q, k_new, v_new as the projections give them ([B, 1, H, Dh]
+    transposed views), a filled bf16 cache of ``n_slots`` slots, the
+    qk-norm gains (or None) and the arguments of the call."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    r = lambda *shape: torch.randn(  # noqa: E731
+        shape, device="cuda", generator=gen).to(torch.bfloat16)
+    q = r(b, 1, hq, hd).transpose(1, 2)
+    k_new = r(b, 1, hkv, hd).transpose(1, 2)
+    v_new = r(b, 1, hkv, hd).transpose(1, 2)
+    caches = (r(b, hkv, n_slots, hd), r(b, hkv, n_slots, hd))
+    gains = [0.3 * torch.randn(hd, device="cuda", generator=gen)
+             for _ in range(2)] if cfg.qk_norm else [None, None]
+    kw = dict(scale=cfg.attn_scale, rope_base=cfg.rope_base,
+              q_norm=gains[0], k_norm=gains[1])
+    return (q, k_new, v_new), caches, kw
+
+
+def _decode_against_plain(torch, da_ops, da_ref, arch, cfg, fills,
+                          n_slots=DECODE_SLOTS):
+    """One call of the kernel against ref.py on copies of one cache of
+    ``n_slots`` slots: the output within DECODE_TOL, every slot but the
+    new ones bit-equal, the new slots within one bf16 ulp.  Returns
+    max |Δ| / max |o|."""
+    heads, caches, kw = _decode_operands(torch, cfg, len(fills), seed=sum(
+        fills), n_slots=n_slots)
+    lengths = torch.tensor(fills, dtype=torch.int32, device="cuda")
+    mine = [c.clone() for c in caches]
+    plain = [c.clone() for c in caches]
+    got = da_ops.decode_attention(*heads, *mine, lengths, **kw)
+    want = da_ref.decode_attention_ref(*heads, *plain, lengths, **kw)
+    torch.cuda.synchronize()
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item() / scale
+    assert torch.isfinite(got).all() and err <= DECODE_TOL, (arch, fills, err)
+    rows = torch.arange(len(fills), device="cuda")
+    slots = (lengths.long() - 1) % n_slots
+    new_err, new_equal = 0.0, True
+    for m, p in zip(mine, plain):
+        new_m, new_p = m[rows, :, slots], p[rows, :, slots]
+        new_equal &= _same_bits(torch, new_m, new_p)
+        new_err = max(new_err, (new_m.float() - new_p.float()).abs().max()
+                      .item() / new_p.float().abs().max().item())
+        m[rows, :, slots] = new_p
+        assert _same_bits(torch, m, p), (arch, fills, "cache")
+    assert new_err <= 2 ** -7, (arch, fills, new_err)
+    shown = list(fills) if len(set(fills)) > 1 or len(fills) == 1 \
+        else f"{len(fills)} × {fills[0]}"
+    n_split = da_ops.splits(len(fills), cfg.n_kv_heads, n_slots,
+                            torch.cuda.get_device_properties(0)
+                            .multi_processor_count)
+    chunk = -(-max(fills) // n_split)  # the kernel's rows a split
+    _log(f"  {arch} (Hq {cfg.n_heads}, Hkv {cfg.n_kv_heads}, qk-norm "
+         f"{cfg.qk_norm}), fills {shown} of {n_slots} ({n_split} splits, "
+         f"{-(-chunk // da_ops.TILE)} tiles a split): max |Δ| / "
+         f"max |o| {err:.2e} (tol {DECODE_TOL:g}); the cache bit-equal but "
+         f"the new slots, which are {'bit-equal' if new_equal else 'within'}"
+         f" {new_err:.1e} of their max (one bf16 ulp {2 ** -7:.1e})")
+    return err
+
+
+def _decode_graph(torch, steps, da_ops, cfg):
+    """A CUDA graph of the call replays the eager call's bits (output
+    and whole cache), a second input too; each replay counts a launch."""
+    heads, caches, kw = _decode_operands(torch, cfg, 1, seed=21)
+    lengths = torch.tensor([DECODE_TIMED_FILL], dtype=torch.int32,
+                           device="cuda")
+    eager = [c.clone() for c in caches]
+    graphed = [c.clone() for c in caches]
+    fn = lambda q, kn, vn, kc, vc, ln: da_ops.decode_attention(  # noqa: E731
+        q, kn, vn, kc, vc, ln, **kw)
+    step = steps.CapturedStep(fn, (*heads, *graphed, lengths), "cuda")
+    before = da_ops.counts["launches"]
+    got = step()
+    want = fn(*heads, *eager, lengths)
+    assert _same_bits(torch, got, want) and _same_bits(torch, graphed, eager)
+    other, _, _ = _decode_operands(torch, cfg, 1, seed=22)
+    lengths2 = lengths - 700
+    got = step(*other, *graphed, lengths2)
+    want = fn(*other, *eager, lengths2)
+    assert _same_bits(torch, got, want) and _same_bits(torch, graphed, eager)
+    assert da_ops.counts["launches"] == before + 4, da_ops.counts
+    _log(f"  a CUDA graph of the call: replays equal the eager calls bit for "
+         "bit (output and the whole cache), at two fills and inputs; one "
+         "launch counted a replay")
+
+
+def _decode_timing(torch, da_ops, da_ref, arch, cfg):
+    """The kernel at the benchmark's fill, beside its bound (the filled
+    K and V read once), the plain path and SDPA on the rotated q over
+    the filled slots (attention alone: the library yardstick)."""
+    import torch.nn.functional as F
+
+    heads, caches, kw = _decode_operands(torch, cfg, 1, seed=23)
+    fill = DECODE_TIMED_FILL
+    lengths = torch.tensor([fill], dtype=torch.int32, device="cuda")
+    positions = (lengths - 1)[:, None].to(torch.int64)
+    q_rot = da_ref.rotate(heads[0], kw["q_norm"], positions, kw["rope_base"])
+    kc, vc = caches
+    kernel = lambda: da_ops.decode_attention(  # noqa: E731
+        *heads, *caches, lengths, **kw)
+    plain = lambda: da_ref.decode_attention_ref(  # noqa: E731
+        *heads, *caches, lengths, **kw)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q_rot, kc[:, :, :fill], vc[:, :, :fill], scale=kw["scale"],
+        enable_gqa=True)
+    for fn in (kernel, plain, library):
+        fn()
+    torch.cuda.synchronize()
+    out = {"ms": _queued_ms(torch, kernel, 50, 5),
+           "plain_ms": _queued_ms(torch, plain, 10, 3),
+           "library_ms": _queued_ms(torch, library, 50, 5)}
+    again = _queued_ms(torch, kernel, 50, 5)
+    nbytes = 2 * cfg.n_kv_heads * fill * cfg.head_dim * 2
+    out.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    _log(f"  {arch} at fill {fill}: kernel {out['ms'] * 1e3:.2f} us (again "
+         f"{again * 1e3:.2f}), bound {out['bound_ms'] * 1e3:.2f} us "
+         f"({nbytes / 1e6:.2f} MB of K and V / 3.35 TB/s; kernel at "
+         f"{out['bound_ms'] / out['ms']:.1%} of it), plain path "
+         f"{out['plain_ms'] * 1e3:.2f} us, SDPA (attention alone) "
+         f"{out['library_ms'] * 1e3:.2f} us")
+    return out
+
+
+def _launches_profiled(torch, fn):
+    """Kernels (and copies, memsets) the profiler records for one call.
+    After many profiler sessions in one process it can lose records
+    (phase 16 of a whole run read 0 and 28 where a run of the phase alone
+    read 2 and 87), so it is printed beside the exact count below."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(count for _, count, _ in _kernel_rows(prof, 1))
+
+
+def _graph_nodes(torch, fn) -> int:
+    """The nodes (kernels, copies, memsets) of a CUDA graph captured from
+    one call of ``fn``: the launches a replay of it makes (the driver's
+    ``cuGraphGetNodes``)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    assert err == 0, f"cuGraphGetNodes: CUresult {err}"
+    del graph
+    return n.value
+
+
+def _decode_launch_counts(torch, T, da_ops, da_ref):
+    """Launches of the attention core alone, kernel and plain, and of an
+    eager qwen3-moe FULL-width decode step a layer (the step at 2 layers
+    less at 1), with the kernel and with the plain path: exact from a
+    captured graph's nodes, and as the profiler records them."""
+    import dataclasses
+
+    from repro_torch.configs import get as get_arch
+
+    cfg = get_arch("qwen3-moe-30b-a3b").config
+    heads, caches, kw = _decode_operands(torch, cfg, 1, seed=24)
+    lengths = torch.tensor([DECODE_TIMED_FILL], dtype=torch.int32,
+                           device="cuda")
+    calls = {"kernel": lambda: da_ops.decode_attention(
+        *heads, *caches, lengths, **kw),
+        "plain": lambda: da_ref.decode_attention_ref(
+            *heads, *caches, lengths, **kw)}
+    out = {"core": {k: _graph_nodes(torch, fn) for k, fn in calls.items()},
+           "core_profiled": {k: _launches_profiled(torch, fn)
+                             for k, fn in calls.items()}}
+    assert out["core"]["kernel"] == 2, out
+    step, profiled = {}, {}
+    designed = da_ops.has_design
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            da_ops.has_design = lambda *a, **k: False
+        try:
+            counts = []
+            for n_layers in (1, 2):
+                c = dataclasses.replace(cfg, n_layers=n_layers)
+                model = T.init(c, torch.Generator(device="cuda").manual_seed(
+                    25))
+                _, cache, _ = T.prefill(
+                    model, torch.zeros((1, 16), dtype=torch.int64,
+                                       device="cuda"), c, DECODE_SLOTS)
+                tok = torch.zeros((1, 1), dtype=torch.int64, device="cuda")
+                fn = lambda: T.decode_step(  # noqa: E731
+                    model, cache, tok, lengths, c)
+                counts.append((_graph_nodes(torch, fn),
+                               _launches_profiled(torch, fn)))
+                del model, cache, fn
+            step[route] = counts[1][0] - counts[0][0]
+            profiled[route] = counts[1][1] - counts[0][1]
+        finally:
+            da_ops.has_design = designed
+    assert step["plain"] - step["kernel"] == \
+        out["core"]["plain"] - out["core"]["kernel"], (step, out)
+    out.update(step_per_layer=step, step_per_layer_profiled=profiled)
+    torch.cuda.empty_cache()
+    _log(f"  launches (a captured graph's nodes; the profiler's count in "
+         f"brackets): the attention core {out['core']['kernel']} "
+         f"[{out['core_profiled']['kernel']}] with the kernel, "
+         f"{out['core']['plain']} [{out['core_profiled']['plain']}] plain; "
+         f"a qwen3-moe FULL decode step a layer {step['kernel']} "
+         f"[{profiled['kernel']}] with the kernel, {step['plain']} "
+         f"[{profiled['plain']}] with the plain path")
+    return out
+
+
+def phase_decode_attention(torch, T, steps, da_ops, da_ref):
+    """Phase 16: the kernel against ref.py at the benchmark's cache for
+    qwen3-moe (32:4, qk-norm), llama3.2 (24:8) and gemma3's global layers
+    (32:16, qk-norm, query scale), at fills 1, 1,024, 1,950 and 2,056 and
+    two rows of other fills, then at DECODE_LONG's caches; a graph replay against eager; times; the
+    launches the profiler counts before and after."""
+    from repro_torch.configs import get as get_arch
+
+    da_ops.reset_counts()
+    worst, times = 0.0, {}
+    for arch in DECODE_ARCHS:
+        cfg = get_arch(arch).config
+        for fill in DECODE_FILLS:
+            worst = max(worst, _decode_against_plain(
+                torch, da_ops, da_ref, arch, cfg, (fill,)))
+        worst = max(worst, _decode_against_plain(
+            torch, da_ops, da_ref, arch, cfg, (DECODE_TIMED_FILL, 7)))
+    for arch, b, n_slots in DECODE_LONG:
+        worst = max(worst, _decode_against_plain(
+            torch, da_ops, da_ref, arch, get_arch(arch).config,
+            (n_slots,) * b, n_slots))
+        torch.cuda.empty_cache()
+    _decode_graph(torch, steps, da_ops, get_arch(DECODE_ARCHS[0]).config)
+    for arch in DECODE_ARCHS:
+        times[arch] = _decode_timing(torch, da_ops, da_ref, arch,
+                                     get_arch(arch).config)
+    launches = _decode_launch_counts(torch, T, da_ops, da_ref)
+    assert da_ops.counts["plain"] == 0, da_ops.counts
+    return {"max_abs_err": worst, **times[DECODE_ARCHS[0]],
+            "by_shape": times, "launch_counts": launches}
+
+
+def decode_attention_only(torch) -> int:
+    """``python3 chip_smoke.py --decode-attention``: the decode attention
+    kernel's build (with its SASS lines) and phase 16 alone, the result
+    as one JSON line."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    reports = build.build_all(["decode_attention"])
+    _log(reports["decode_attention"][-2000:])
+    with _phase("phase 16: the decode attention core"):
+        out = phase_decode_attention(torch, T, steps, da_ops, da_ref)
+    print(json.dumps({"decode_attention": out}))
+    return 0
+
+
 def kernel_timings(torch) -> int:
     """``python3 chip_smoke.py --kernel-timings``: phase 1's build and
     phase 4's timings alone, as one JSON line (kernel ms of each shape).
@@ -5126,9 +5492,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if argv[:1] == ["--kernel-timings"]:
         return kernel_timings(torch)
+    if argv[:1] == ["--decode-attention"]:
+        return decode_attention_only(torch)
 
     from repro_torch.configs import get as get_arch
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.data import pipeline
@@ -5179,6 +5549,7 @@ def main(argv=None) -> int:
                     "serve + generate)"):
             launches, fa_launches, ctx = phase_main_path(torch, ops, fa_ops,
                                                          tmp)
+            ctx_decode_launches = ctx["decode_launches"]
 
         with _phase("phase 4: HSF and top-k timings at the serving shape"):
             timing = phase_timings(torch, ops, ref)
@@ -5246,6 +5617,8 @@ def main(argv=None) -> int:
         with _phase("phase 15: the GNN (mace FULL, four cells; card vs CPU; "
                     "forces; the dry run)"):
             phase_gnn(torch, np)
+        with _phase("phase 16: the decode attention core"):
+            decode = phase_decode_attention(torch, T, steps, da_ops, da_ref)
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     _log(f"card: {card}")  # again, near the end, for readers of the tail
 
@@ -5258,6 +5631,10 @@ def main(argv=None) -> int:
     fa_shapes = {name: t for f in families.values()
                  for name, t in f["flash"].items()}
     _log(f"flash_attention launches on its paths: {fa_paths}")
+    da_paths = {"phase3": ctx_decode_launches, **{
+        f"phase11_{arch}": f["decode_launches"]
+        for arch, f in families.items()}}
+    _log(f"decode_attention launches on its paths: {da_paths}")
     print(json.dumps({"kernels": [{
         "name": "hsf_score_topk",
         "route": "cuda",
@@ -5309,6 +5686,15 @@ def main(argv=None) -> int:
         "max_abs_err": bag_max_err,
         **{k: bag_timing[SERVE_BULK][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        # the JAX package's decode attention is plain jnp
+        "replaces": None,
+        "launches": sum(da_paths.values()),
+        "launches_by_path": da_paths,
+        **decode,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,10 @@ before each product, which is what the reference's bf16 einsums with a
 float32 result compute, and round p to the value dtype before P·V, as
 the reference does.
 
-Decode (one new token against a KV cache) stays plain PyTorch: the
-reference computes it outside any Pallas kernel.
+Decode (one new token against a KV cache) here is plain PyTorch, as the
+reference computes it outside any Pallas kernel: the decode step's
+plain path and ``kernels/decode_attention``'s plain version.  Where that
+kernel has a design, the decode step takes it instead.
 """
 from __future__ import annotations
 

@@ -49,6 +49,8 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, mla as mla_mod, moe as moe_mod
 from repro_torch.models.mla import MLAConfig
@@ -424,18 +426,33 @@ def _norm(x, w):
     return layers.rms_norm(x, w, unit_offset=True)
 
 
-def _gqa_project(lp: Layer, x, cfg: LMConfig, positions, base):
+def _gqa_heads(lp: Layer, x, cfg: LMConfig):
+    """The q, k, v projections of x [B, L, d] as [B, H, L, hd] views."""
     b, l, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     a, dt = lp.attn, x.dtype
     q = (x @ a["w_q"].to(dt)).view(b, l, h, hd).transpose(1, 2)
     k = (x @ a["w_k"].to(dt)).view(b, l, hkv, hd).transpose(1, 2)
     v = (x @ a["w_v"].to(dt)).view(b, l, hkv, hd).transpose(1, 2)
-    if cfg.qk_norm:
-        q = layers.rms_norm(q, a["q_norm"], unit_offset=True)
-        k = layers.rms_norm(k, a["k_norm"], unit_offset=True)
-    q = layers.apply_rope(q, positions, base)
-    k = layers.apply_rope(k, positions, base)
+    return q, k, v
+
+
+def _gqa_project(lp: Layer, x, cfg: LMConfig, positions, base):
+    return _gqa_rotate(lp, *_gqa_heads(lp, x, cfg), cfg, positions, base)
+
+
+def _qk_gains(lp: Layer, cfg: LMConfig):
+    """The qk-norm gains (q_norm, k_norm), or (None, None) without."""
+    return (lp.attn["q_norm"], lp.attn["k_norm"]) if cfg.qk_norm \
+        else (None, None)
+
+
+def _gqa_rotate(lp: Layer, q, k, v, cfg: LMConfig, positions, base):
+    """qk-norm and RoPE of the projections, k and v repeated
+    ``kv_repeat`` times."""
+    q_norm, k_norm = _qk_gains(lp, cfg)
+    q = da_ref.rotate(q, q_norm, positions, base)
+    k = da_ref.rotate(k, k_norm, positions, base)
     if cfg.kv_repeat > 1:
         k = k.repeat_interleave(cfg.kv_repeat, dim=1)
         v = v.repeat_interleave(cfg.kv_repeat, dim=1)
@@ -682,21 +699,30 @@ def prefill_static(model: LM, tokens, lengths, caches: list[dict],
     return _unembed(model, x, cfg)[:, 0], caches, lengths
 
 
-def _gqa_decode(lp: Layer, xin, cache, cfg: LMConfig, lengths, positions):
+def _gqa_decode(lp: Layer, xin, cache, cfg: LMConfig, lengths):
     """GQA attention of one token against its layer's cache, whose slot
-    it writes in place; returns [B, 1, d_model]."""
-    b = xin.shape[0]
+    it writes in place; returns [B, 1, d_model].  Operands the decode
+    attention kernel has a design for (``da_ops.has_design``: a linear
+    bf16 cache without softcap or kv replication) go to its wrapper;
+    the rest (ring caches, softcaps, replication, other dtypes and head
+    sizes) to the plain path."""
     kind = lp.kind
-    q, k_new, v_new = _gqa_project(lp, xin, cfg, positions,
-                                   _rope_base_for(cfg, kind))
+    base = _rope_base_for(cfg, kind)
     k_cache, v_cache = cache["k"], cache["v"]
+    q, k_new, v_new = _gqa_heads(lp, xin, cfg)
+    window = cfg.window if kind == "local" else None
+    if da_ops.has_design(q, k_new, v_new, k_cache, v_cache,
+                         softcap=cfg.attn_softcap, window=window):
+        q_norm, k_norm = _qk_gains(lp, cfg)
+        o = da_ops.decode_attention(
+            q, k_new, v_new, k_cache, v_cache, lengths, scale=cfg.attn_scale,
+            rope_base=base, q_norm=q_norm, k_norm=k_norm)
+        return _attn_out(lp, o)
+    positions = (lengths - 1)[:, None].to(torch.int64)  # [B, 1]
+    q, k_new, v_new = _gqa_rotate(lp, q, k_new, v_new, cfg, positions, base)
+    da_ref.append(k_cache, v_cache, k_new, v_new, lengths)
     n_slots = k_cache.shape[2]
-    slot = ((lengths - 1) % n_slots).to(torch.int64)  # [B]
-    b_idx = torch.arange(b, device=xin.device)
-    k_cache[b_idx, :, slot, :] = k_new[:, :, 0, :].to(k_cache.dtype)
-    v_cache[b_idx, :, slot, :] = v_new[:, :, 0, :].to(v_cache.dtype)
-    if kind == "local" and cfg.window is not None \
-            and n_slots == min(cfg.window, n_slots):
+    if window is not None and n_slots == min(window, n_slots):
         # ring cache: validity = slot holds a real position
         slot_pos = _ring_slot_positions(n_slots, lengths)  # [B, S]
         mask = (slot_pos >= 0) & (slot_pos < lengths[:, None])
@@ -706,8 +732,7 @@ def _gqa_decode(lp: Layer, xin, cache, cfg: LMConfig, lengths, positions):
     else:
         o = attn.decode_attention(
             q, k_cache, v_cache, lengths, scale=cfg.attn_scale,
-            window=cfg.window if kind == "local" else None,
-            softcap=cfg.attn_softcap)
+            window=window, softcap=cfg.attn_softcap)
     return _attn_out(lp, o)
 
 
@@ -715,14 +740,14 @@ def _layer_decode(lp: Layer, x, cache, cfg: LMConfig, lengths):
     """One decoded token through one layer; writes its cache slot in
     place and returns x."""
     xin = _norm(x, lp.norms["ln1"])
-    positions = (lengths - 1)[:, None].to(torch.int64)  # [B, 1]
     if cfg.mla is not None:
+        positions = (lengths - 1)[:, None].to(torch.int64)  # [B, 1]
         a, _ = mla_mod.decode_absorbed(
             lp.attn, xin, cfg.mla, cfg.n_heads, cache["c_kv"],
             cache["k_rope"], lengths, positions,
             _rope_base_for(cfg, lp.kind))
     else:
-        a = _gqa_decode(lp, xin, cache, cfg, lengths, positions)
+        a = _gqa_decode(lp, xin, cache, cfg, lengths)
     return _mlp_block(lp, x, a, cfg)[0]
 
 
@@ -730,9 +755,10 @@ def decode_step(model: LM, caches: list[dict], tokens, lengths,
                 cfg: LMConfig | None = None, backend: str = "auto"):
     """One decode step.  tokens [B, 1] (the token just sampled), lengths
     [B] = cache fill INCLUDING this token.  Returns (logits [B, 1, V],
-    caches) — the caches are updated in place.  Decode attention is
-    plain PyTorch on every backend, as in the reference (MLA: the
-    absorbed form over the compressed cache)."""
+    caches) — the caches are updated in place.  ``backend`` is ignored:
+    GQA decode attention takes the decode attention kernel where it has
+    a design and the plain path elsewhere (MLA: the absorbed form over
+    the compressed cache, plain)."""
     del backend
     cfg = model.cfg if cfg is None else cfg
     x = _embed(model, tokens, cfg)

@@ -481,12 +481,14 @@ def test_recording_sees_only_its_own_thread(table):
 
 
 def test_wrappers_count_through_the_shared_tables():
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.hsf_score import ops as hsf_ops
     from repro_torch.kernels.topk import ops as topk_ops
 
     for name, table in (("flash_attention", fa_ops.counts),
+                        ("decode_attention", da_ops.counts),
                         ("topk", topk_ops.counts),
                         ("hsf_score", hsf_ops.counts),
                         ("hsf_score.single", hsf_ops.single_counts),
