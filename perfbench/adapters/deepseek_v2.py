@@ -2,7 +2,13 @@
 and the benchmark's weights: the port's ``LMConfig`` with MLA and MoE,
 and its parameter tree built from the same tensors (views, no copy).
 The port parameterizes every RMSNorm gain as 1 + w, so it is given
-gain - 1."""
+gain - 1.
+
+Every key the reference reads reaches the program.  ``rope_scaling``
+(when not null) and ``routed_scaling_factor`` (when not 1) are passed
+under their published names, so a file that states the identity builds
+the ``LMConfig`` it always did, and one that states what the program
+lacks stops at construction with a ``TypeError`` naming the key."""
 from __future__ import annotations
 
 from repro_torch.models.mla import MLAConfig
@@ -13,6 +19,12 @@ from repro_torch.models.transformer import LMConfig
 def program_config(cfg: dict) -> LMConfig:
     if cfg["rms_norm_eps"] != 1e-6:
         raise ValueError("the port's RMSNorm takes eps 1e-6 only")
+    rope = {}
+    if cfg.get("rope_scaling") is not None:
+        rope["rope_scaling"] = dict(cfg["rope_scaling"])
+    routed = {}
+    if cfg["routed_scaling_factor"] != 1:
+        routed["routed_scaling_factor"] = cfg["routed_scaling_factor"]
     return LMConfig(
         name=cfg["name"],
         n_layers=cfg["num_hidden_layers"],
@@ -34,10 +46,11 @@ def program_config(cfg: dict) -> LMConfig:
                       top_k=cfg["num_experts_per_tok"],
                       d_ff_expert=cfg["moe_intermediate_size"],
                       n_shared=cfg["n_shared_experts"],
-                      norm_topk=cfg["norm_topk_prob"]),
+                      norm_topk=cfg["norm_topk_prob"], **routed),
         n_dense_head_layers=cfg["first_k_dense_replace"],
         dense_d_ff=cfg["intermediate_size"],
         dtype=cfg["torch_dtype"],
+        **rope,
     )
 
 

@@ -128,10 +128,10 @@ def test_files_under_paths_are_named_from_name_characters(bench):
 
 def test_config_keeps_every_published_number(bench):
     """The deepseek file holds the published config.json's numbers and
-    its ``rope_scaling`` group whole (the port has no YaRN, so the file
-    is no configuration of ``BENCHMARK.json`` until it has); a file that
-    ``BENCHMARK.json`` names differs only in the keys its entry lists
-    under ``reduced``."""
+    its ``rope_scaling`` group whole (the program must implement the
+    file's ``rope_scaling``: the adapter hands it over, and a program
+    without it stops at construction); a file that ``BENCHMARK.json``
+    names differs only in the keys its entry lists under ``reduced``."""
     published = {  # hf:deepseek-ai/DeepSeek-V2-Lite config.json
         "first_k_dense_replace": 1, "hidden_size": 2048,
         "intermediate_size": 10944, "kv_lora_rank": 512,

@@ -74,8 +74,10 @@ def test_yarn_tables_hand_values():
 
 def test_yarn_reference_departs_from_plain_rope():
     """With the published ``rope_scaling`` the reference's logits are not
-    plain RoPE's: the program, which has no YaRN, matches the latter
-    only (the first test), so the check refuses its answers."""
+    plain RoPE's, so the check holds the program to the file's
+    ``rope_scaling``: a program that ran plain RoPE in its place would
+    have its answers refused.  The adapter hands the program the group,
+    and a program without it stops at construction."""
     cfg = dict(smoke.DEEPSEEK, name="yarn-check", torch_dtype="float32")
     ref = spec.load_module(BENCH_DIR / "reference" / "deepseek_v2.py",
                            "pb_test_reference_yarn_smoke")
