@@ -6,6 +6,13 @@ Lite).  MoE: 64 routed + 2 shared experts, top-6, d_ff(expert) 1408;
 layer 0 is a dense MLP with d_ff 10944.  ~15.7 B total / ~2.7 B active.
 The same values as the JAX package's ``configs/deepseek_v2_lite_16b.py``
 (64 routed experts: the Lite model, not full V2's 160).
+
+``FULL`` mirrors the JAX package's values, plain RoPE at ``rope_base``
+included, so that the two packages can be held to each other.  The
+published model also scales its RoPE by YaRN (factor 40, mscale and
+mscale_all_dim 0.707, beta 32/1 over 4,096 original positions); that
+model, ``rope_scaling`` and all, is what the benchmark's configuration
+file ``perfbench/configs/rag.deepseek-v2-lite-16b.json`` builds.
 """
 from repro_torch.models.mla import MLAConfig
 from repro_torch.models.moe import MoEConfig

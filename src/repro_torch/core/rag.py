@@ -28,6 +28,7 @@ from repro_torch.core.engine import QueryEngine, RetrievalResult
 from repro_torch.core.ingest import KnowledgeBase
 from repro_torch.core.tokenizer import tokenize
 from repro_torch.launch.steps import GenerationSteps
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import transformer as T
 from repro_torch.obs import trace as obs_trace
 
@@ -153,7 +154,13 @@ class RAGPipeline:
                 return self._generate(question, results, max_new_tokens,
                                       None)
             marks = _Marks()
+            routes = (dict(mla_mod.counts) if self.cfg.mla is not None
+                      else None)
             out = self._generate(question, results, max_new_tokens, marks)
+            if routes is not None:
+                marks.args.update(
+                    (arg, mla_mod.counts[key] - routes[key])
+                    for arg, key in _MLA_ROUTE_ARGS)
             span.set(prompt_len=out.prompt_len, tokens=len(out.token_ids),
                      **marks.args)
             obs_trace.record_batch(span.trace_id,
@@ -226,6 +233,12 @@ class RAGPipeline:
         return RAGOutput(retrieved=results, token_ids=out,
                          prompt_len=len(prompt), prefill_s=prefill_s,
                          decode_s=decode_s)
+
+
+# the generate span's args of an MLA model: (arg, ``mla.counts`` key)
+_MLA_ROUTE_ARGS = (("mla_prefill_unpadded", "prefill_unpadded"),
+                   ("mla_prefill_padded", "prefill_padded"),
+                   ("mla_decode_layers", "decode_absorbed"))
 
 
 class _Marks:

@@ -6,6 +6,8 @@ the reference does.  ``dense_mlp_*`` are the recsys towers.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -47,24 +49,76 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
 # rotary position embedding
 # --------------------------------------------------------------------------
 
-def rope_table(positions: torch.Tensor, head_dim: int, base: float):
-    """(sin, cos) tables for positions [..., L] → [..., L, head_dim/2],
-    in float32."""
+def _mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor: 0.1 · mscale · ln(factor) + 1 (1 where
+    the factor does not stretch)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_rope(head_dim: int, base: float,
+              scaling: dict) -> tuple[torch.Tensor, float, float]:
+    """YaRN (arXiv:2309.00071) as DeepSeek-V2's ``modeling_deepseek.py``
+    applies it, for a RoPE of ``head_dim`` at ``base`` and the
+    configuration's ``rope_scaling`` group: (inverse frequencies
+    [head_dim/2] in float64 on the host, the factor on cos and sin, the
+    factor on the softmax scale).  Each frequency is blended between
+    ``base``'s and it over ``factor`` by a linear ramp between the
+    correction dimensions of ``beta_fast`` and ``beta_slow`` rotations in
+    ``original_max_position_embeddings``; cos and sin take mscale(factor,
+    mscale) / mscale(factor, mscale_all_dim), the softmax scale
+    mscale(factor, mscale_all_dim)²."""
     half = head_dim // 2
-    exps = -torch.arange(0, half, dtype=torch.float32,
-                         device=positions.device) / half
-    # a Python-float base: no host → device copy (which would wait for
-    # the queued device work) on every call
-    freqs = torch.pow(float(base), exps)
-    angles = positions[..., None].to(torch.float32) * freqs
-    return torch.sin(angles), torch.cos(angles)
+    factor = float(scaling["factor"])
+    orig = scaling["original_max_position_embeddings"]
+    extra = float(base) ** (-torch.arange(half, dtype=torch.float64) / half)
+
+    def correction_dim(rotations: float) -> float:
+        return (head_dim * math.log(orig / (rotations * 2 * math.pi))
+                / (2 * math.log(base)))
+
+    low = max(math.floor(correction_dim(scaling.get("beta_fast", 32))), 0)
+    high = min(math.ceil(correction_dim(scaling.get("beta_slow", 1))),
+               head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(half, dtype=torch.float64) - low)
+            / (high - low)).clamp(0, 1)
+    inv_freq = extra / factor * ramp + extra * (1 - ramp)
+    all_dim = scaling.get("mscale_all_dim", 0)
+    cos_sin = (_mscale(factor, scaling.get("mscale", 1))
+               / _mscale(factor, all_dim))
+    softmax = _mscale(factor, all_dim) ** 2 if all_dim else 1.0
+    return inv_freq, cos_sin, softmax
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               base: float) -> torch.Tensor:
+def rope_table(positions: torch.Tensor, head_dim: int, base: float,
+               inv_freq: torch.Tensor | None = None, mscale: float = 1.0):
+    """(sin, cos) tables for positions [..., L] → [..., L, head_dim/2],
+    in float32, at ``base``'s frequencies, or at ``inv_freq`` [head_dim/2]
+    (float32, on the positions' device: YaRN's) with both tables times
+    ``mscale``."""
+    if inv_freq is None:
+        half = head_dim // 2
+        exps = -torch.arange(0, half, dtype=torch.float32,
+                             device=positions.device) / half
+        # a Python-float base: no host → device copy (which would wait
+        # for the queued device work) on every call
+        freqs = torch.pow(float(base), exps)
+        angles = positions[..., None].to(torch.float32) * freqs
+        return torch.sin(angles), torch.cos(angles)
+    angles = positions[..., None].to(torch.float32) * inv_freq
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    if mscale != 1.0:
+        sin, cos = sin * mscale, cos * mscale
+    return sin, cos
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, base: float,
+               inv_freq: torch.Tensor | None = None,
+               mscale: float = 1.0) -> torch.Tensor:
     """Rotate pairs (split-half convention).  x: [B, H, L, D],
-    positions: [B, L]."""
-    sin, cos = rope_table(positions, x.shape[-1], base)
+    positions: [B, L]; ``inv_freq`` and ``mscale`` as ``rope_table``."""
+    sin, cos = rope_table(positions, x.shape[-1], base, inv_freq, mscale)
     sin = sin[:, None, :, :]  # [B, 1, L, D/2]
     cos = cos[:, None, :, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)

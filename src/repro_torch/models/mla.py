@@ -24,17 +24,40 @@ Two execution paths:
   output), so a step reads only the compressed cache.  The scores and
   the p·c_kv product are accumulated and kept in float32, as the
   reference's ``preferred_element_type`` does.
+
+Both paths rotate q and the shared RoPE key at ``rope_base``, or, where
+the model's configuration asks for YaRN, at the inverse frequencies
+``inv_freq`` with cos and sin times ``rope_mscale``
+(``layers.yarn_rope``); ``scale`` is then the softmax scale times
+YaRN's mscale² (``LMConfig.attn_scale``).  Each layer call counts its
+route in ``counts`` (``prefill_unpadded``, ``prefill_padded``,
+``decode_absorbed``), registered with ``kernels/counters`` so that a
+replayed CUDA graph counts the calls it captured.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import counters
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
+
+_counts_lock = threading.Lock()
+# layer calls by route: the prefill's heads as they are (a flash design
+# takes them) or zero-padded, and the absorbed decode step
+counts = {"prefill_unpadded": 0, "prefill_padded": 0, "decode_absorbed": 0}
+counters.register("mla", counts, _counts_lock)
+
+
+def reset_counts() -> None:
+    with _counts_lock:
+        for key in counts:
+            counts[key] = 0
 
 
 @dataclass(frozen=True)
@@ -74,23 +97,25 @@ def init(gen: torch.Generator, cfg: MLAConfig, d_model: int, n_heads: int,
 
 
 def _project_q(params, x, cfg: MLAConfig, n_heads: int, positions,
-               rope_base):
+               rope_base, inv_freq=None, rope_mscale: float = 1.0):
     b, l, _ = x.shape
     q = (x @ params["w_q"].to(x.dtype)).view(b, l, n_heads,
                                              cfg.qk_head_dim)
     q = q.transpose(1, 2)  # [B, H, L, qdim]
     q_nope = q[..., :cfg.nope_head_dim]
     q_rope = layers.apply_rope(q[..., cfg.nope_head_dim:], positions,
-                               rope_base)
+                               rope_base, inv_freq, rope_mscale)
     return q_nope, q_rope
 
 
-def compress_kv(params, x, cfg: MLAConfig, positions, rope_base):
+def compress_kv(params, x, cfg: MLAConfig, positions, rope_base,
+                inv_freq=None, rope_mscale: float = 1.0):
     """x → (c_kv [B, L, R] normalized, k_rope [B, 1, L, rope_dim])."""
     c_kv = layers.rms_norm(x @ params["w_dkv"].to(x.dtype),
                            params["kv_norm"].to(torch.float32) + 1.0)
     k_rope = (x @ params["w_kr"].to(x.dtype))[:, None]  # one shared head
-    return c_kv, layers.apply_rope(k_rope, positions, rope_base)
+    return c_kv, layers.apply_rope(k_rope, positions, rope_base, inv_freq,
+                                   rope_mscale)
 
 
 def padded_head_dim(cfg: MLAConfig, dtype: torch.dtype) -> int | None:
@@ -121,12 +146,17 @@ def padded_attention(q, k, v, *, scale: float, head_dim: int | None,
 
 
 def apply(params, x, cfg: MLAConfig, n_heads: int, positions,
-          rope_base: float, backend: str = "auto"):
-    """Forward/prefill path.  Returns (out [B, L, D], (c_kv, k_rope))."""
+          rope_base: float, backend: str = "auto", *,
+          scale: float | None = None, inv_freq=None,
+          rope_mscale: float = 1.0):
+    """Forward/prefill path.  Returns (out [B, L, D], (c_kv, k_rope)).
+    ``scale`` defaults to ``cfg.scale``; ``inv_freq`` and ``rope_mscale``
+    are YaRN's (module docstring)."""
     b, l, _ = x.shape
     h = n_heads
-    q_nope, q_rope = _project_q(params, x, cfg, h, positions, rope_base)
-    c_kv, k_rope = compress_kv(params, x, cfg, positions, rope_base)
+    rope = (rope_base, inv_freq, rope_mscale)
+    q_nope, q_rope = _project_q(params, x, cfg, h, positions, *rope)
+    c_kv, k_rope = compress_kv(params, x, cfg, positions, *rope)
     k_nope = (c_kv @ params["w_uk"].to(x.dtype)) \
         .view(b, l, h, cfg.nope_head_dim).transpose(1, 2)
     v = (c_kv @ params["w_uv"].to(x.dtype)) \
@@ -134,9 +164,12 @@ def apply(params, x, cfg: MLAConfig, n_heads: int, positions,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(b, h, l, cfg.rope_head_dim)],
                   dim=-1)
-    o = padded_attention(q, k, v, scale=cfg.scale,
-                         head_dim=padded_head_dim(cfg, q.dtype),
-                         backend=backend)
+    head_dim = padded_head_dim(cfg, q.dtype)
+    counters.bump("mla", "prefill_unpadded" if head_dim is None
+                  else "prefill_padded")
+    o = padded_attention(q, k, v,
+                         scale=cfg.scale if scale is None else scale,
+                         head_dim=head_dim, backend=backend)
     o = o.transpose(1, 2).reshape(b, l, h * cfg.v_head_dim)
     return o @ params["w_o"].to(x.dtype), (c_kv, k_rope)
 
@@ -156,14 +189,18 @@ def decode_absorbed(params, x, cfg: MLAConfig, n_heads: int,
                     k_rope_cache: torch.Tensor,  # [B, 1, S, rope_dim]
                     length,  # [B] current fill AFTER inserting this token
                     positions,  # [B, 1] position of the new token
-                    rope_base: float):
+                    rope_base: float, *, scale: float | None = None,
+                    inv_freq=None, rope_mscale: float = 1.0):
     """Absorbed decode of one token against the compressed cache, whose
     slot length - 1 it writes in place.  Returns (out [B, 1, D],
-    (c_kv_cache, k_rope_cache))."""
+    (c_kv_cache, k_rope_cache)).  ``scale``, ``inv_freq`` and
+    ``rope_mscale`` as ``apply``."""
     b = x.shape[0]
     h, r = n_heads, cfg.kv_lora_rank
-    q_nope, q_rope = _project_q(params, x, cfg, h, positions, rope_base)
-    c_new, kr_new = compress_kv(params, x, cfg, positions, rope_base)
+    counters.bump("mla", "decode_absorbed")
+    rope = (rope_base, inv_freq, rope_mscale)
+    q_nope, q_rope = _project_q(params, x, cfg, h, positions, *rope)
+    c_new, kr_new = compress_kv(params, x, cfg, positions, *rope)
     idx = (length - 1).to(torch.int64)
     b_idx = torch.arange(b, device=x.device)
     c_kv_cache[b_idx, idx, :] = c_new[:, 0, :].to(c_kv_cache.dtype)
@@ -176,7 +213,8 @@ def decode_absorbed(params, x, cfg: MLAConfig, n_heads: int,
     s_c = _f32_product(q_c.reshape(b, h, r), c_kv_cache.transpose(1, 2))
     s_r = _f32_product(q_rope.reshape(b, h, cfg.rope_head_dim),
                        k_rope_cache[:, 0].transpose(1, 2))
-    s = ((s_c + s_r) * cfg.scale)[:, :, None, :]  # [B, H, 1, S]
+    scale = cfg.scale if scale is None else scale
+    s = ((s_c + s_r) * scale)[:, :, None, :]  # [B, H, 1, S]
     mask = (torch.arange(s_max, device=x.device)[None, :]
             < length[:, None])[:, None, None, :]
     s = torch.where(mask, s, attn.MASK_VALUE)

@@ -42,6 +42,7 @@ the MoE dispatch reads nothing back to the host).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -63,6 +64,11 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 _MATRICES = frozenset({"embed", "lm_head", "w_q", "w_k", "w_v", "w_o",
                        "w_gate", "w_up", "w_down",
                        "w_dkv", "w_kr", "w_uk", "w_uv"})
+
+
+@functools.lru_cache(maxsize=None)
+def _yarn(head_dim: int, base: float, scaling: tuple):
+    return layers.yarn_rope(head_dim, base, dict(scaling))
 
 
 @dataclass(frozen=True)
@@ -96,6 +102,36 @@ class LMConfig:
     # KV-head replication factor (each KV head repeated kv_repeat×);
     # exact — a pure layout change
     kv_repeat: int = 1
+    # the published ``rope_scaling`` group (a dict is accepted and kept as
+    # its sorted items, so the config stays hashable): YaRN only, on MLA's
+    # RoPE only (the GQA decode kernel rotates at ``rope_base`` itself)
+    rope_scaling: tuple[tuple[str, object], ...] | None = None
+
+    def __post_init__(self):
+        if self.rope_scaling is None:
+            return
+        group = dict(self.rope_scaling)
+        kind = group.get("type", group.get("rope_type"))
+        if kind != "yarn":
+            raise ValueError(f"rope_scaling: type {kind!r} is not "
+                             "implemented (only 'yarn')")
+        if self.mla is None:
+            raise ValueError("rope_scaling: YaRN is implemented for MLA "
+                             "only, and this config has no mla")
+        # analysis: allow[snapshot-mutation] -- the caller's dict
+        # becomes its sorted items once, in construction, before the
+        # config is shared
+        object.__setattr__(self, "rope_scaling", tuple(sorted(group.items())))
+
+    @property
+    def yarn(self) -> tuple[torch.Tensor, float, float] | None:
+        """``layers.yarn_rope`` of MLA's RoPE (inverse frequencies in
+        float64, the cos/sin factor, the softmax factor), or None without
+        ``rope_scaling``."""
+        if self.rope_scaling is None:
+            return None
+        return _yarn(self.mla.rope_head_dim, self.rope_base,
+                     self.rope_scaling)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -133,6 +169,8 @@ class LMConfig:
         if self.query_scale is not None:
             return self.query_scale
         if self.mla is not None:
+            if self.rope_scaling is not None:
+                return self.mla.scale * self.yarn[2]
             return self.mla.scale
         return self.head_dim ** -0.5
 
@@ -247,7 +285,8 @@ class Layer(nn.Module):
     reference's parameter tree."""
 
     def __init__(self, kind: str, moe: bool, tree: dict, cfg: LMConfig,
-                 device, leaf_dtype=None, requires_grad: bool = False):
+                 device, leaf_dtype=None, requires_grad: bool = False,
+                 rope_inv: torch.Tensor | None = None):
         super().__init__()
         self.kind, self.moe = kind, moe
         form = (cfg, device, leaf_dtype, requires_grad)
@@ -255,6 +294,9 @@ class Layer(nn.Module):
                               if k not in ("attn", "mlp")}, *form)
         self.attn = Weights(tree["attn"], *form)
         self.mlp = Weights(tree["mlp"], *form)
+        # YaRN's inverse frequencies on the device (None without), made
+        # once with the model so that no step copies them in
+        self.register_buffer("rope_inv", rope_inv, persistent=False)
 
     def tree(self) -> dict:
         return {**self.norms.tree(), "attn": self.attn.tree(),
@@ -279,8 +321,11 @@ class LM(nn.Module):
         if len(tree["layers"]) != len(kinds):
             raise ValueError(f"{len(tree['layers'])} layer trees for "
                              f"{len(kinds)} layers")
+        yarn = cfg.yarn
+        rope_inv = None if yarn is None else yarn[0].to(
+            device=device, dtype=torch.float32)
         self.layers = nn.ModuleList(
-            Layer(kind, cfg.is_moe_layer(i), lt, *form)
+            Layer(kind, cfg.is_moe_layer(i), lt, *form, rope_inv=rope_inv)
             for i, (kind, lt) in enumerate(zip(kinds, tree["layers"])))
 
     @property
@@ -465,6 +510,15 @@ def _rope_base_for(cfg: LMConfig, kind: str) -> float:
     return cfg.rope_base
 
 
+def _mla_yarn(lp: Layer, cfg: LMConfig) -> dict:
+    """MLA's keywords under YaRN (the softmax scale, the layer's inverse
+    frequencies, the cos/sin factor); none without ``rope_scaling``."""
+    if lp.rope_inv is None:
+        return {}
+    return {"scale": cfg.attn_scale, "inv_freq": lp.rope_inv,
+            "rope_mscale": cfg.yarn[1]}
+
+
 def _attn_out(lp: Layer, o):
     """[B, H, L, hd] attention output → [B, L, d_model]."""
     b, h, l, hd = o.shape
@@ -501,7 +555,8 @@ def _layer_full(lp: Layer, x, cfg: LMConfig, positions, backend):
     base = _rope_base_for(cfg, kind)
     if cfg.mla is not None:
         a, (c_kv, k_rope) = mla_mod.apply(lp.attn, xin, cfg.mla, cfg.n_heads,
-                                          positions, base, backend=backend)
+                                          positions, base, backend=backend,
+                                          **_mla_yarn(lp, cfg))
         kv = {"c_kv": c_kv, "k_rope": k_rope}
     else:
         q, k, v = _gqa_project(lp, xin, cfg, positions, base)
@@ -745,7 +800,7 @@ def _layer_decode(lp: Layer, x, cache, cfg: LMConfig, lengths):
         a, _ = mla_mod.decode_absorbed(
             lp.attn, xin, cfg.mla, cfg.n_heads, cache["c_kv"],
             cache["k_rope"], lengths, positions,
-            _rope_base_for(cfg, lp.kind))
+            _rope_base_for(cfg, lp.kind), **_mla_yarn(lp, cfg))
     else:
         a = _gqa_decode(lp, xin, cache, cfg, lengths)
     return _mlp_block(lp, x, a, cfg)[0]
