@@ -159,8 +159,9 @@ Phases (any failure raises and the script exits non-zero):
    generating, with phase 3's ids and scores, flash launches = layers ×
    prefills and no plain call, decode attention launches = the layers
    it has a design for (gemma3's global ones, all of qwen3's, none of
-   gemma2's or deepseek's) × decode steps and no plain call; the 512
-   bucket's prefill replay and the
+   gemma2's or deepseek's) × decode steps and no plain call, MoE decode
+   launches = the MoE layers (qwen3's 48, deepseek's 26) × decode steps
+   and no plain call; the 512 bucket's prefill replay and the
    decode replay equal the eager static-shape steps bit for bit, and two
    served requests again through the graphs give the served tokens and
    the eager steps' tokens; (b) last-position prefill logits through the
@@ -265,18 +266,34 @@ Phases (any failure raises and the script exits non-zero):
    FULL-width decode step a layer (2 layers less 1), with the kernel and
    with the plain path, from a captured graph's nodes and as the
    profiler records them.
+17. The MoE decode layer (``csrc/moe_decode.cu``): the kernel against
+   ``ref.py`` at qwen3-moe's (128 experts of 768, top 8, renormalised)
+   and deepseek-v2-lite's (64 of 1,408, top 6) MoE widths, D 2,048, at
+   T = 1, 2, 4, 8, 16 and 32 (the expert ids equal to ``moe.route``'s,
+   the gates within 1e-5, the output within MOE_DECODE_TOL); a CUDA graph
+   of the call replayed to the eager bits (T = 1 and 2 twice, T = 8
+   fifty times); a NaN and an inf in one token's row: ids in range, that
+   row NaN, the other rows' bits as with it zeroed; one layer call timed
+   at each T, the kernel, ``ref.py`` (what the decode step runs without a
+   design) and the grouped path the step ran before (``moe.apply``), each
+   as a graph over MOE_DECODE_LAYERS layers' weights in turn, beside the
+   kernel's bound (the chosen experts read once) and each path's graph
+   nodes, from which the wrapper's MAX_TOKENS is chosen.  The record's
+   launches are phase 11's served decode steps.
 
 The second line from the end is a JSON ``kernels`` record; the last is
 ``{"ok": true, "device": {...}}``.  ``--kernel-timings`` runs phase 1's
 build and phase 4's timings alone and prints them as one JSON line;
 ``--decode-attention`` builds that kernel and runs phase 16 alone, its
-result one JSON line.  With no CUDA device, or without the
+result one JSON line; ``--moe-decode`` likewise builds the MoE decode
+kernel and runs phase 17 alone.  With no CUDA device, or without the
 repository's ``src/repro_torch`` beside it, the script exits non-zero
 and prints no result.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -3601,6 +3618,7 @@ def _lm_family(torch, T, steps, serve, fa_ops, fa_ref, arch, ctx):
     from repro_torch.core.ingest import KnowledgeBase
     from repro_torch.core.rag import RAGPipeline
     from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.moe_decode import ops as md_ops
     from repro_torch.models import moe
 
     cfg = get_arch(arch).config
@@ -3609,6 +3627,7 @@ def _lm_family(torch, T, steps, serve, fa_ops, fa_ref, arch, ctx):
                + ctx["queries"][-FAMILY_QUERIES:])
     fa_ops.reset_counts()
     da_ops.reset_counts()
+    md_ops.reset_counts()
     _log(f"  (a) {arch}: serve.main --container (phase 3's) --arch {arch} "
          f"({cfg.param_count() / 1e9:.2f} B params, "
          f"{cfg.active_param_count() / 1e9:.2f} B active, "
@@ -3627,11 +3646,16 @@ def _lm_family(torch, T, steps, serve, fa_ops, fa_ref, arch, ctx):
     decodes = len(queries) * MAX_NEW_TOKENS
     assert da_ops.counts == {"launches": designed * decodes, "plain": 0}, \
         (da_ops.counts, designed, decodes)
+    moe_layers = _moe_decode_expected_layers(torch, md_ops, arch, cfg)
+    assert md_ops.counts == {"launches": moe_layers * decodes, "plain": 0}, \
+        (md_ops.counts, moe_layers, decodes)
     _log(f"  (a) {len(queries)} requests generated {MAX_NEW_TOKENS} tokens "
          f"each; ids and scores equal phase 3's; flash launches {launches} "
          f"(= {cfg.n_layers} layers × {len(queries)} prefills), plain 0; "
          f"decode attention launches {da_ops.counts['launches']} (= "
          f"{designed} layers with a design × {decodes} decode steps), "
+         f"plain 0; MoE decode launches {md_ops.counts['launches']} (= "
+         f"{moe_layers} MoE layers with a design × {decodes} decode steps), "
          "plain 0")
 
     t0 = time.perf_counter()
@@ -3663,7 +3687,8 @@ def _lm_family(torch, T, steps, serve, fa_ops, fa_ref, arch, ctx):
                                 floor_block_k=64)
 
     out = {"launches": launches, "logit_rel": out_err,
-           "decode_launches": designed * decodes}
+           "decode_launches": designed * decodes,
+           "moe_decode_launches": moe_layers * decodes}
     moe_layer = next((lp.mlp for lp in model.layers if lp.moe), None)
     if arch == "qwen3-moe-30b-a3b":
         out["moe_err"] = _moe_layer_check(torch, steps, moe, cfg, moe_layer)
@@ -5166,6 +5191,42 @@ def _decode_expected_layers(torch, T, da_ops, arch, cfg) -> int:
     return want
 
 
+# the MoE layers each arch's decode step sends to the MoE decode kernel,
+# from the config alone: every MoE layer of the two MoE archs (bf16
+# experts, a float32 router, widths the kernel tiles), none of the dense
+# archs'
+MOE_DECODE_DESIGNED = {
+    "llama3.2-3b": lambda cfg: 0,
+    "gemma2-9b": lambda cfg: 0,
+    "gemma3-27b": lambda cfg: 0,
+    "qwen3-moe-30b-a3b": lambda cfg: cfg.n_layers,
+    "deepseek-v2-lite-16b": lambda cfg: cfg.n_layers - cfg.n_dense_head_layers,
+}
+
+
+def _moe_decode_expected_layers(torch, md_ops, arch, cfg) -> int:
+    """MOE_DECODE_DESIGNED's count for the arch, checked against what
+    ``has_design`` accepts of one decode token's operands (as the served
+    model holds them: compute-dtype experts, a float32 router), as shapes
+    on the meta device."""
+    want = MOE_DECODE_DESIGNED[arch](cfg)
+    got = 0
+    if cfg.moe is not None:
+        m, d, dt = cfg.moe, cfg.d_model, cfg.compute_dtype
+        e, f = m.n_experts, m.d_ff_expert
+
+        def meta(*shape, dtype=dt):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        params = {"router": meta(d, e, dtype=torch.float32),
+                  "w_gate": meta(e, d, f), "w_up": meta(e, d, f),
+                  "w_down": meta(e, f, d)}
+        if md_ops.has_design(meta(1, d), params, m):
+            got = cfg.n_layers - cfg.n_dense_head_layers
+    assert got == want, (arch, got, want)
+    return want
+
+
 def _decode_designed_layers(torch, T, da_ops, cfg) -> int:
     """The layers whose decode attention the kernel has a design for:
     ``has_design`` on the operands the decode step gives it, as shapes
@@ -5432,6 +5493,230 @@ def phase_decode_attention(torch, T, steps, da_ops, da_ref):
             "by_shape": times, "launch_counts": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the MoE decode layer (csrc/moe_decode.cu)
+# ---------------------------------------------------------------------------
+
+MOE_DECODE_ARCHS = ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b")
+# the tokens a call is timed at, kernel against the grouped path: the
+# wrapper's MAX_TOKENS is chosen from these
+MOE_DECODE_TOKENS = (1, 2, 4, 8, 16, 32)
+# kernel vs ref.py, of ref's max |out|: another summation order in the
+# products, which can move a bf16 rounding of g, u, h or y by one ulp
+MOE_DECODE_TOL = 2e-2
+# distinct layers' weights a timed graph runs through in turn, so that
+# each call reads its experts from device memory as a decode step does
+# (one layer's K experts, 75.5 MB for qwen3, outgrow the 50 MB L2 alone)
+MOE_DECODE_LAYERS = 4
+
+
+def _moe_decode_layer(torch, moe, cfg, seed):
+    """One MoE layer's routed experts at the arch's widths as the serving
+    model holds them: ``moe.init``'s distributions, bf16 experts, a float32
+    router; no shared experts."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = moe.init(gen, cfg.moe, cfg.d_model, device="cuda")
+    return {n: w if n == "router" else w.to(torch.bfloat16)
+            for n, w in params.items()}
+
+
+def _moe_decode_bytes(cfg, ids) -> int:
+    """The bytes a call must read: the experts its tokens chose (three bf16
+    matrices each), once; the router and the activations left out."""
+    m = cfg.moe
+    return len(set(ids.flatten().tolist())) * 3 * cfg.d_model \
+        * m.d_ff_expert * 2
+
+
+def _moe_decode_against_ref(torch, md_ops, md_ref, moe, arch, cfg, params,
+                            t):
+    """One call at T tokens against ref.py: the same expert ids, the gates
+    within 1e-5, the output within MOE_DECODE_TOL.  Returns max |Δ| / max
+    |out|."""
+    gen = torch.Generator(device="cuda").manual_seed(100 + t)
+    x = torch.randn((t, cfg.d_model), device="cuda", generator=gen) \
+        .to(torch.bfloat16)
+    got, gates, ids = md_ops._launch(x, params, cfg.moe)
+    _, want_gates, want_ids = moe.route(params, x, cfg.moe)
+    want = md_ref.moe_decode_ref(x, params, cfg.moe)
+    torch.cuda.synchronize()
+    assert torch.equal(ids.long(), want_ids), (arch, t, ids, want_ids)
+    gate_err = (gates - want_gates).abs().max().item()
+    assert gate_err <= 1e-5, (arch, t, gate_err)
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item() / scale
+    assert torch.isfinite(got).all() and err <= MOE_DECODE_TOL, (arch, t, err)
+    return err
+
+
+# replays of a captured call held to the eager bits, by T: the down
+# kernel reads ids and gates before its wait (``moe_decode_launch``), so
+# T = 8, the most the wrapper takes, is replayed many times
+MOE_DECODE_REPLAYS = {1: 2, 2: 2, 8: 50}
+
+
+def _moe_decode_graph(torch, steps, md_ops, cfg, params):
+    """A CUDA graph of the call replays the eager call's bits on new
+    inputs, MOE_DECODE_REPLAYS times at each T; each replay counts one
+    launch."""
+    for t, n in MOE_DECODE_REPLAYS.items():
+        gen = torch.Generator(device="cuda").manual_seed(200 + t)
+        xs = [torch.randn((t, cfg.d_model), device="cuda", generator=gen)
+              .to(torch.bfloat16) for _ in range(n)]
+        fn = lambda x: md_ops.moe_decode(x, params, cfg.moe)  # noqa: E731
+        step = steps.CapturedStep(fn, (xs[0].clone(),), "cuda")
+        before = md_ops.counts["launches"]
+        for x in xs:
+            got = step(x)
+            assert _same_bits(torch, got, fn(x)), t
+        assert md_ops.counts["launches"] == before + 2 * n, md_ops.counts
+        del step
+
+
+def _moe_decode_non_finite(torch, md_ops, md_ref, moe, cfg, params):
+    """A NaN, then an inf, in one of four tokens: no fault, every id in
+    [0, E), that token routed to experts 0 .. k-1 (``moe.route``'s order:
+    NaN above every number) with NaN gates and a NaN output row, the
+    other tokens' ids and bits as with that row zeroed; then a clean call
+    matches ref.py."""
+    m = cfg.moe
+    for bad in (float("nan"), float("inf")):
+        gen = torch.Generator(device="cuda").manual_seed(250)
+        x = torch.randn((4, cfg.d_model), device="cuda", generator=gen) \
+            .to(torch.bfloat16)
+        x[2, 100] = bad
+        got, gates, ids = md_ops._launch(x, params, m)
+        torch.cuda.synchronize()
+        assert bool(((ids >= 0) & (ids < m.n_experts)).all()), ids
+        assert ids[2].tolist() == list(range(m.top_k)), ids
+        assert bool(torch.isnan(gates[2]).all() & torch.isnan(got[2]).all())
+        rest, clean = [0, 1, 3], x.clone()
+        clean[2] = 0
+        want, _, want_ids = md_ops._launch(clean, params, m)
+        assert torch.equal(ids[rest], want_ids[rest])
+        assert torch.equal(ids[rest].long(),
+                           moe.route(params, clean, m)[2][rest])
+        assert _same_bits(torch, got[rest], want[rest])
+    x = torch.randn((1, cfg.d_model), device="cuda", generator=gen) \
+        .to(torch.bfloat16)
+    want = md_ref.moe_decode_ref(x, params, m).float()
+    err = (md_ops.moe_decode(x, params, m).float() - want).abs().max()
+    assert err <= MOE_DECODE_TOL * want.abs().max(), err
+
+
+def _moe_decode_timing(torch, md_ops, md_ref, moe, cfg, layers, t):
+    """Device time of one MoE layer call at T tokens in ms: the kernel
+    (``ms``), its plain version ``ref.py`` (``plain_ms``: route, sort,
+    grouped products, combine; what the decode step runs without a
+    design) and the grouped path the decode step ran before the kernel
+    (``apply_ms``: ``moe.apply``, the same and the aux loss), each a CUDA
+    graph over MOE_DECODE_LAYERS layers in turn, replayed back to back;
+    the kernel's bound (the chosen experts read once at 3.35 TB/s); each
+    path's graph nodes a call.  No library computes the layer
+    (``library_ms`` None)."""
+    gen = torch.Generator(device="cuda").manual_seed(300 + t)
+    x = torch.randn((t, cfg.d_model), device="cuda", generator=gen) \
+        .to(torch.bfloat16)
+    paths = {"": lambda p: md_ops._launch(x, p, cfg.moe)[0],
+             "plain_": lambda p: md_ref.moe_decode_ref(x, p, cfg.moe),
+             "apply_": lambda p: moe.apply(p, x, cfg.moe)[0]}
+    out = {}
+    for name, fn in paths.items():
+        def run(fn=fn):
+            for p in layers:
+                fn(p)
+        run()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            run()
+        graph.replay()
+        out[f"{name}ms"] = _queued_ms(torch, graph.replay, 20, 5) \
+            / len(layers)
+        out[f"{name}nodes"] = _graph_nodes(torch, lambda: fn(layers[0]))
+        del graph
+    nbytes = statistics.mean(
+        _moe_decode_bytes(cfg, moe.route(p, x, cfg.moe)[2]) for p in layers)
+    out.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               library_ms=None)
+    return out
+
+
+def phase_moe_decode(torch, steps, md_ops, md_ref):
+    """Phase 17: the kernel against ref.py at qwen3-moe's and
+    deepseek-v2-lite's MoE widths, T = 1 … 32; graph replays against
+    eager; a NaN and an inf in x; the kernel, ref.py and the grouped path
+    timed at each T against the kernel's bound."""
+    from repro_torch.configs import get as get_arch
+    from repro_torch.models import moe
+
+    md_ops.reset_counts()
+    worst, times = 0.0, {}
+    for arch in MOE_DECODE_ARCHS:
+        cfg = get_arch(arch).config  # the routed experts alone
+        m = dataclasses.replace(cfg.moe, n_shared=0)
+        cfg = dataclasses.replace(cfg, moe=m)
+        layers = [_moe_decode_layer(torch, moe, cfg, seed=400 + i)
+                  for i in range(MOE_DECODE_LAYERS)]
+        errs = [_moe_decode_against_ref(torch, md_ops, md_ref, moe, arch,
+                                        cfg, layers[0], t)
+                for t in MOE_DECODE_TOKENS]
+        worst = max(worst, *errs)
+        _moe_decode_graph(torch, steps, md_ops, cfg, layers[0])
+        _moe_decode_non_finite(torch, md_ops, md_ref, moe, cfg, layers[0])
+        _log(f"  {arch} (E {m.n_experts}, top {m.top_k}, F {m.d_ff_expert}, "
+             f"D {cfg.d_model}, norm_topk {m.norm_topk}): ids equal to "
+             "moe.route's, gates within 1e-5, max |Δ| / max |out| "
+             + ", ".join(f"T={t} {e:.2e}" for t, e in
+                         zip(MOE_DECODE_TOKENS, errs))
+             + f" (tol {MOE_DECODE_TOL:g}); graph replays == eager bit for "
+             "bit (" + ", ".join(f"T={t} {n}×" for t, n in
+                                 MOE_DECODE_REPLAYS.items())
+             + "), one launch counted a replay; a NaN and an inf in x: ids "
+             "in range, that token's row NaN, the others' bits unchanged")
+        times[arch] = {}
+        for t in MOE_DECODE_TOKENS:
+            r = times[arch][t] = _moe_decode_timing(torch, md_ops, md_ref,
+                                                    moe, cfg, layers, t)
+            _log(f"  {arch} T={t}: kernel {r['ms'] * 1e3:.2f} us "
+                 f"({r['nodes']} nodes), ref.py {r['plain_ms'] * 1e3:.2f} us "
+                 f"({r['plain_nodes']} nodes), moe.apply "
+                 f"{r['apply_ms'] * 1e3:.2f} us ({r['apply_nodes']} nodes), "
+                 f"bound {r['bound_ms'] * 1e3:.2f} us (kernel at "
+                 f"{r['bound_ms'] / r['ms']:.1%} of it); "
+                 f"{'within' if t <= md_ops.MAX_TOKENS else 'above'} "
+                 f"MAX_TOKENS {md_ops.MAX_TOKENS}")
+        del layers
+        torch.cuda.empty_cache()
+    assert md_ops.counts["plain"] == 0, md_ops.counts
+    return {"max_abs_err": worst, **times[MOE_DECODE_ARCHS[0]][1],
+            "by_shape": {f"{arch},T={t}": r for arch, by_t in times.items()
+                         for t, r in by_t.items()}}
+
+
+def moe_decode_only(torch) -> int:
+    """``python3 chip_smoke.py --moe-decode``: the MoE decode kernel's
+    build (its ptxas report) and phase 17 alone, the result as one JSON
+    line."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.moe_decode import ops as md_ops
+    from repro_torch.kernels.moe_decode import ref as md_ref
+    from repro_torch.launch import steps
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    _log(f"card: {card}")
+    reports = build.build_all(["moe_decode"])
+    # no report where the kernel was built before, by this checkout
+    _log(reports.get("moe_decode", "moe_decode: built before")[-3000:])
+    with _phase("phase 17: the MoE decode layer"):
+        out = phase_moe_decode(torch, steps, md_ops, md_ref)
+    print(json.dumps({"moe_decode": out, "card": card}))
+    return 0
+
+
 def decode_attention_only(torch) -> int:
     """``python3 chip_smoke.py --decode-attention``: the decode attention
     kernel's build (with its SASS lines) and phase 16 alone, the result
@@ -5494,6 +5779,8 @@ def main(argv=None) -> int:
         return kernel_timings(torch)
     if argv[:1] == ["--decode-attention"]:
         return decode_attention_only(torch)
+    if argv[:1] == ["--moe-decode"]:
+        return moe_decode_only(torch)
 
     from repro_torch.configs import get as get_arch
     from repro_torch.kernels import build
@@ -5501,6 +5788,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.moe_decode import ops as md_ops
+    from repro_torch.kernels.moe_decode import ref as md_ref
     from repro_torch.data import pipeline
     from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.embedding_bag import ref as bag_ref
@@ -5619,6 +5908,8 @@ def main(argv=None) -> int:
             phase_gnn(torch, np)
         with _phase("phase 16: the decode attention core"):
             decode = phase_decode_attention(torch, T, steps, da_ops, da_ref)
+        with _phase("phase 17: the MoE decode layer"):
+            moe_decode = phase_moe_decode(torch, steps, md_ops, md_ref)
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     _log(f"card: {card}")  # again, near the end, for readers of the tail
 
@@ -5635,6 +5926,9 @@ def main(argv=None) -> int:
         f"phase11_{arch}": f["decode_launches"]
         for arch, f in families.items()}}
     _log(f"decode_attention launches on its paths: {da_paths}")
+    md_paths = {f"phase11_{arch}": f["moe_decode_launches"]
+                for arch, f in families.items()}
+    _log(f"moe_decode launches on its paths: {md_paths}")
     print(json.dumps({"kernels": [{
         "name": "hsf_score_topk",
         "route": "cuda",
@@ -5695,6 +5989,16 @@ def main(argv=None) -> int:
         "launches": sum(da_paths.values()),
         "launches_by_path": da_paths,
         **decode,
+    }, {
+        "name": "moe_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_decode.cu",
+        # the JAX package's MoE layer is plain jnp
+        "replaces": None,
+        # the served decode steps of phase 11's MoE archs, counted from 0
+        "launches": sum(md_paths.values()),
+        "launches_by_path": md_paths,
+        **moe_decode,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,7 @@ from repro_torch.core import hashing
 from repro_torch.core.engine import QueryEngine, RetrievalResult
 from repro_torch.core.ingest import KnowledgeBase
 from repro_torch.core.tokenizer import tokenize
+from repro_torch.kernels.moe_decode import ops as md_ops
 from repro_torch.launch.steps import GenerationSteps
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import transformer as T
@@ -156,11 +157,16 @@ class RAGPipeline:
             marks = _Marks()
             routes = (dict(mla_mod.counts) if self.cfg.mla is not None
                       else None)
+            moe_layers = (_moe_decode_layers() if self.cfg.moe is not None
+                          else None)
             out = self._generate(question, results, max_new_tokens, marks)
             if routes is not None:
                 marks.args.update(
                     (arg, mla_mod.counts[key] - routes[key])
                     for arg, key in _MLA_ROUTE_ARGS)
+            if moe_layers is not None:
+                marks.args["moe_decode_layers"] = (_moe_decode_layers()
+                                                   - moe_layers)
             span.set(prompt_len=out.prompt_len, tokens=len(out.token_ids),
                      **marks.args)
             obs_trace.record_batch(span.trace_id,
@@ -233,6 +239,12 @@ class RAGPipeline:
         return RAGOutput(retrieved=results, token_ids=out,
                          prompt_len=len(prompt), prefill_s=prefill_s,
                          decode_s=decode_s)
+
+
+def _moe_decode_layers() -> int:
+    """MoE layer calls the MoE decode layer's wrapper has served (kernel
+    launches and plain calls; a replayed graph counts what it captured)."""
+    return md_ops.counts["launches"] + md_ops.counts["plain"]
 
 
 # the generate span's args of an MLA model: (arg, ``mla.counts`` key)

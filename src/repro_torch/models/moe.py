@@ -202,15 +202,20 @@ def apply_expert_parallel(params, x: torch.Tensor, cfg: MoEConfig, mesh,
                            *(wi[s * e_loc:(s + 1) * e_loc] for wi in w),
                            s, capacity)
         out = part if out is None else out + part
+    return add_shared(params, x, out, cfg), aux_loss(probs, ids, cfg)
+
+
+def add_shared(params, x: torch.Tensor, out: torch.Tensor,
+               cfg: MoEConfig) -> torch.Tensor:
+    """The routed experts' output ``out`` [T, D] plus the shared experts'
+    MLP of x, where the config has shared experts."""
     if cfg.n_shared:
         out = out + layers.mlp_apply(params["shared"], x)
-    return out, aux_loss(probs, ids, cfg)
+    return out
 
 
 def apply(params, x: torch.Tensor, cfg: MoEConfig):
     """x [T, D] (already flattened) → (out [T, D], aux loss f32)."""
     probs, gates, ids = route(params, x, cfg)
     out = dispatch(x, ids, gates, params, cfg)
-    if cfg.n_shared:
-        out = out + layers.mlp_apply(params["shared"], x)
-    return out, aux_loss(probs, ids, cfg)
+    return add_shared(params, x, out, cfg), aux_loss(probs, ids, cfg)

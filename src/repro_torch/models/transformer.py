@@ -52,6 +52,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.moe_decode import ops as md_ops
+from repro_torch.kernels.moe_decode import ref as md_ref
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, mla as mla_mod, moe as moe_mod
 from repro_torch.models.mla import MLAConfig
@@ -526,9 +528,25 @@ def _attn_out(lp: Layer, o):
         @ lp.attn["w_o"].to(o.dtype)
 
 
-def _mlp_block(lp: Layer, x, a, cfg: LMConfig):
+def _moe_decode(params, x, m: MoEConfig):
+    """The MoE layer of a decode step, x [T, D] → [T, D], without the aux
+    loss (decode has no use for it).  Operands the MoE decode kernel has a
+    design for (``md_ops.has_design``: bf16, a few tokens, widths it
+    tiles) go to its wrapper; the rest (float32 models, the SMOKE widths)
+    to its plain version (``moe.route`` and ``moe.dispatch``).  Shared
+    experts are added after, as ``moe.apply`` adds them."""
+    if md_ops.has_design(x, params, m):
+        out = md_ops.moe_decode(x, params, m)
+    else:
+        out = md_ref.moe_decode_ref(x, params, m)
+    return moe_mod.add_shared(params, x, out, m)
+
+
+def _mlp_block(lp: Layer, x, a, cfg: LMConfig, decode: bool = False):
     """Residual add of the attention output, then the MLP sublayer (dense
-    or MoE).  Returns (x, the MoE aux loss or None)."""
+    or MoE).  Returns (x, the MoE aux loss or None); ``decode`` (a decode
+    step's token) takes the MoE decode layer, which computes no aux
+    loss."""
     if cfg.post_norms:
         a = _norm(a, lp.norms["post_ln1"])
     x = x + a
@@ -536,7 +554,10 @@ def _mlp_block(lp: Layer, x, a, cfg: LMConfig):
     aux = None
     if lp.moe:
         b, l, d = h.shape
-        m, aux = moe_mod.apply(lp.mlp, h.reshape(b * l, d), cfg.moe)
+        if decode:
+            m = _moe_decode(lp.mlp, h.reshape(b * l, d), cfg.moe)
+        else:
+            m, aux = moe_mod.apply(lp.mlp, h.reshape(b * l, d), cfg.moe)
         m = m.view(b, l, d)
     else:
         m = layers.mlp_apply(lp.mlp, h, activation=cfg.activation)
@@ -803,7 +824,7 @@ def _layer_decode(lp: Layer, x, cache, cfg: LMConfig, lengths):
             _rope_base_for(cfg, lp.kind), **_mla_yarn(lp, cfg))
     else:
         a = _gqa_decode(lp, xin, cache, cfg, lengths)
-    return _mlp_block(lp, x, a, cfg)[0]
+    return _mlp_block(lp, x, a, cfg, decode=True)[0]
 
 
 def decode_step(model: LM, caches: list[dict], tokens, lengths,

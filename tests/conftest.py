@@ -99,3 +99,11 @@ except ModuleNotFoundError:
     _hyp.strategies = _st
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _st
+
+
+def pytest_configure(config):
+    # tests of CUDA kernels that run only on a card: each decides inside
+    # the test (a fixture) whether a CUDA device is present, and skips
+    # with that reason where none is
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; skips on a host without one")
